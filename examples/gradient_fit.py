@@ -1,7 +1,7 @@
 """Gradient-based circuit design: fit component values to a voltage target.
 
 Every BatchedSolver is differentiable with ``jax.grad`` — reverse mode
-runs one *adjoint solve* per backward pass through the same TPU kernels
+runs one *adjoint solve* per backward pass through the same kernels
 as the forward solve (see BatchedSolver._finalize, nodal_tpu/batch.py).
 The reference framework (numpy/scipy solves) has no gradient capability;
 this is what a native JAX compute path buys.

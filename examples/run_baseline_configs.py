@@ -3,7 +3,7 @@
 Usage:  python examples/run_baseline_configs.py [--quick]
 
 --quick shrinks the heavy configs (for CPU smoke runs); without it the
-sizes match BASELINE.json exactly (expects a TPU for sane wall times).
+sizes match BASELINE.json exactly (expects a GPU for sane wall times).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""nodal_tpu — a TPU-native nodal-analysis framework.
+"""nodal_tpu — a JAX nodal-analysis framework for accelerators.
 
 Same capabilities and API surface as the reference ``nodal`` package
 (EnricoMiccoli/nodal): CSV netlists with R/A/E/VCVS/VCCS/CCVS/CCCS/OPMODEL
@@ -35,9 +35,9 @@ from nodal_tpu.models.stamps import Quirks, compile_stamps  # noqa: F401
 def enable_x64() -> None:
     """Enable float64 end to end (call before creating any arrays).
 
-    On TPU, dense factorizations still run as f32 LU + f64 iterative
-    refinement (the TPU compiler has no f64 LU); everything elementwise and
-    all iterative solvers run in true (emulated) f64.
+    Dense factorizations, elementwise work and the iterative solvers then
+    all run in native f64; the batched sweeps keep their explicit f32
+    default (``BatchedSolver(dtype=...)``).
     """
     import jax
 

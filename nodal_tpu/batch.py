@@ -3,8 +3,8 @@
 The reference has no batching story at all (SURVEY.md §2.5 — one
 ``solve()`` per process).  Here a netlist topology compiles once; a sweep is
 ``vmap`` over the component-value vector, so assembling + factoring B
-systems is a single XLA program on the MXU.  This is the ≥10k solves/sec
-@1k-nodes target path (BASELINE.json).
+systems is a single XLA program on the accelerator.  This is the ≥10k
+solves/sec @1k-nodes target path (BASELINE.json).
 
 Typical use:
 
@@ -30,51 +30,13 @@ from nodal_tpu.ops.assemble import assemble_dense
 from nodal_tpu.ops import dense_solve
 
 
-def _schur_block_assembler(stamps: StampTensors, dtype, nk_pad: int):
-    """Closure assembling the MNA 2x2 block partition directly (no full-G
-    materialization): A [nk_pad, nk_pad] (128-padded, unit pad diagonal),
-    B [nk, kbe], C [kbe, nk], D [kbe, kbe], and the split RHS.  Host-side
-    index planning; jit/vmap-friendly application."""
-    from nodal_tpu.models.stamps import stamp_values
-
-    nk = stamps.n_kcl
-    kbe = stamps.n - nk
-    gr = stamps.g_rows
-    gc = stamps.g_cols
-    iA = np.nonzero((gr < nk) & (gc < nk))[0]
-    iB = np.nonzero((gr < nk) & (gc >= nk))[0]
-    iC = np.nonzero((gr >= nk) & (gc < nk))[0]
-    iD = np.nonzero((gr >= nk) & (gc >= nk))[0]
-    rr = stamps.rhs_rows
-    ik = np.nonzero(rr < nk)[0]
-    ib = np.nonzero(rr >= nk)[0]
-    pad_idx = np.arange(nk, nk_pad)
-
-    def blocks(params):
-        g_vals, rhs_vals = stamp_values(
-            stamps, jnp.asarray(params, dtype=dtype)
-        )
-        A = jnp.zeros((nk_pad, nk_pad), dtype).at[gr[iA], gc[iA]].add(
-            g_vals[iA])
-        A = A.at[pad_idx, pad_idx].add(1.0)
-        Bm = jnp.zeros((nk, kbe), dtype).at[gr[iB], gc[iB] - nk].add(
-            g_vals[iB])
-        C = jnp.zeros((kbe, nk), dtype).at[gr[iC] - nk, gc[iC]].add(
-            g_vals[iC])
-        D = jnp.zeros((kbe, kbe), dtype).at[gr[iD] - nk, gc[iD] - nk].add(
-            g_vals[iD])
-        bk = jnp.zeros(nk, dtype).at[rr[ik]].add(rhs_vals[ik])
-        bb = jnp.zeros(kbe, dtype).at[rr[ib] - nk].add(rhs_vals[ib])
-        return A, Bm, C, D, bk, bb
-
-    return blocks
-
-
 def _schur_band_assembler(stamps: StampTensors, dtype, bplan):
-    """Banded variant of :func:`_schur_block_assembler`: the resistive node
-    block A is assembled straight into RCM-reordered block-band storage
-    (ops.band.BandPlan), with B's rows / C's columns / bk carried in the
-    same ordering so only the final xk needs un-permuting."""
+    """Closure assembling the MNA 2x2 block partition for the banded Schur
+    paths, with no full-G materialization: the resistive node block A goes
+    straight into RCM-reordered band storage (``bplan`` is a
+    ops.band.BandPlan or ops.scalar_band.ScalarBandPlan), with B's rows /
+    C's columns / bk carried in the same ordering so only the final xk
+    needs un-permuting.  Returns ``(W, B, C, D, bk, bb)``."""
     from nodal_tpu.models.stamps import stamp_values
 
     nk = stamps.n_kcl
@@ -283,10 +245,8 @@ def _coo_apply(stamps: StampTensors, g_vals, xs):
     """``y = G·x`` straight from the COO stamp entries — no matrix built.
 
     Folds each row's few entries with dense gathers when rows are narrow
-    (the common case) — the per-sample scatter-add this replaces was ~45%
-    of the fused Monte Carlo program's runtime on TPU (252k/s without the
-    audit vs 135k/s with the scatter form).  Dense rows fall back to the
-    scatter-add.
+    (the common case) instead of a per-sample scatter-add.  Dense rows
+    fall back to the scatter-add.
     """
     gf = _resid_gather_tables(stamps)
     if gf is not None:
@@ -476,17 +436,11 @@ def _escalating_solver(stamps: StampTensors, inner, transpose: bool = False):
                                // max(stamps.n * stamps.n * 4, 1)))
             while B % chunk:  # largest divisor of B within the budget
                 chunk -= 1
-            # Native f64 pivoted LU where it exists (host CPU): defect
-            # iteration around an f32 factorization diverges once
-            # cond(A)·eps_f32 > 1 (~1e7 — reachable by near-singular
-            # draws), while f64 LU is backward-stable regardless.  On TPU
-            # f64 LU does not compile, so the rescue is f32 LU + f64
-            # defect there — near-singular samples may plateau ~1e-5 and
-            # keep their audit flag (honest limit, logged by monte_carlo).
-            if jax.default_backend() == "tpu":
-                core = make_dense_core(stamps, jnp.float32, refine=True)
-            else:
-                core = make_dense_core(stamps, jnp.float64, refine=False)
+            # Native f64 pivoted LU: defect iteration around an f32
+            # factorization diverges once cond(A)·eps_f32 > 1 (~1e7 —
+            # reachable by near-singular draws), while f64 LU is
+            # backward-stable regardless.
+            core = make_dense_core(stamps, jnp.float64, refine=False)
             if B % chunk == 0 and B > chunk:
                 pbc = params_batch.reshape(B // chunk, chunk, -1)
                 if rhs is None:
@@ -516,9 +470,9 @@ def _escalating_solver(stamps: StampTensors, inner, transpose: bool = False):
 def make_dense_core(stamps: StampTensors, dtype, refine: bool):
     """``core(pb, rhs=None, transpose=False)``: the dense (pivoted-LU)
     MNA solve shared by BatchedSolver's 'dense' method and the sharded
-    multi-chip solver's fallback — f32 factorization (TPU has no f64 LU)
-    plus exact-COO f64 defect correction when ``refine`` (3 iterations,
-    matching the accuracy of the per-sample solve_refined it replaced)."""
+    multi-chip solver's fallback — an LU in ``dtype``, or with ``refine``
+    an f32 factorization plus exact-COO f64 defect correction
+    (3 iterations)."""
     from nodal_tpu.ops import dense_solve
     from nodal_tpu.ops.assemble import assemble_dense
 
@@ -556,7 +510,7 @@ def make_adjoint_solver(stamps: StampTensors, solve_batch, solve_rhs_t):
     ``v̄_rhs[e] = λ[row_e]``, pulled back to component values through
     ``stamp_values``'s own VJP.  Cost: one extra solve per backward pass —
     the textbook adjoint method, never materializing ∂G/∂p.  Shared by
-    BatchedSolver and the GSPMD-sharded multi-chip solver.
+    BatchedSolver and the sharded multi-chip solver.
 
     Limitation: custom_vjp disables *forward-mode* AD (``jax.jvp`` /
     ``jacfwd`` raise TypeError).  Reverse mode is the right shape for
@@ -656,17 +610,17 @@ class BatchedSolver:
     * ``tridiag`` — chain/ladder topologies (bandwidth ≤ 1, purely
       resistive): band assembly + parallel cyclic reduction, O(n log n)
       work, no dense matrix ever built.
-    * ``sband``  — narrow-band resistive circuits (half-bandwidth ≤ 56
-      after RCM — e.g. 2-D meshes): scalar banded LDLᵀ with the batch in
-      the TPU lane dimension (ops.scalar_band / ops.pallas_scalar_band),
-      O(n·w²) VPU work — orders of magnitude below any block tier.
+    * ``sband``  — narrow-band resistive circuits (half-bandwidth after
+      RCM ≤ ``scalar_band.max_w(dtype)`` — e.g. 2-D meshes): scalar banded
+      LDLᵀ, one system per GPU thread (ops.scalar_band /
+      ops.pallas_scalar_band), O(n·w²) work.
     * ``band``   — locally-connected resistive circuits (meshes, buses,
       3-D lattices) whose half-bandwidth after a reverse Cuthill-McKee
-      reordering fits a block size kb ∈ {128, 256, 384}:
-      block-tridiagonal no-pivot Thomas (ops.band / ops.pallas_band),
-      O(n·kb²) work instead of O(n³/3) and 3·kb·n storage instead of n².
+      reordering fits a block size kb (ops.band): block-tridiagonal
+      no-pivot Thomas, O(n·kb²) work instead of O(n³/3) and 3·kb·n
+      storage instead of n².
     * ``block``  — remaining resistive (diagonally dominant) systems: the
-      MXU-native no-pivot blocked LU (ops.block_lu).
+      no-pivot blocked LU (ops.block_lu).
     * ``schur``  — branch-equation systems whose resistive node block is
       SPD (checked host-side with a Cholesky probe): block elimination —
       no-pivot blocked LU on the node block, small pivoted solve on the
@@ -678,10 +632,12 @@ class BatchedSolver:
         circuit: the compiled circuit (topology + default params), or bare
             :class:`StampTensors` (e.g. from the native parser,
             nodal_tpu.utils.native.parse_stamps).
-        dtype: batch numerics; default float32 — the TPU fast path.
+        dtype: batch numerics; default float32 — the fast path.
         refine: add f64-residual iterative refinement (f64-level accuracy
             at f32 speed for well-conditioned systems).
         method: override the structure-based choice.
+        interpret: run the scalar-band kernel in the Pallas interpreter on
+            every platform (tests).
     """
 
     def __init__(
@@ -691,6 +647,7 @@ class BatchedSolver:
         dtype=jnp.float32,
         refine: bool | str = "auto",
         method: str = "auto",
+        interpret: bool = False,
     ):
         from nodal_tpu.ops.assemble import assemble_tridiag, bandwidth
         from nodal_tpu.ops import block_lu, tridiag
@@ -716,26 +673,26 @@ class BatchedSolver:
                 "'dense'"
             )
         from nodal_tpu.ops.band import band_plan
-        from nodal_tpu.ops.scalar_band import MAX_W, sband_plan
-        from nodal_tpu.ops.pallas_scalar_band import sband_fits_vmem
+        from nodal_tpu.ops.scalar_band import MAX_W, max_w, sband_plan
 
         resistive = self.stamps.n == self.stamps.n_kcl  # no branch equations
+        # The sband solve runs in f32 under refine=True (f64 residuals).
+        sband_dtype = jnp.float32 if refine else dtype
         if method == "auto":
             if resistive and bandwidth(self.stamps) <= 1:
                 method = "tridiag"
-            elif resistive and (splan := sband_plan(self.stamps)) is not None:
+            elif resistive and (splan := sband_plan(self.stamps)) is not None \
+                    and splan.w <= max_w(sband_dtype):
                 # Narrow band after RCM: the scalar LDLᵀ tier does n·w²
-                # VPU flops/sample where the block tiers do n·kb² (kb ≥
-                # 128) on the MXU — measured 25.3k vs 14.6k solves/s per
-                # call on the 25×40 bench mesh (w=26) at B=1024.
+                # flops/sample where the block tiers do n·kb² (kb ≥ 64).
                 method = "sband"
             elif resistive and (plan := band_plan(self.stamps)) is not None \
-                    and plan.nb >= 2 and (plan.kb == 128 or plan.n > 1024):
+                    and plan.nb >= 2 and (plan.kb <= 128 or plan.n > 1024):
                 # Bandable after RCM: O(n·kb²) block-Thomas beats the dense
-                # O(n³/3) blocked LU and shrinks storage n² -> 3·kb·n.
-                # Wide bands (kb ≥ 256) only pay off past the VMEM LU
-                # kernel's n=1024 reach: below it the dense factorization
-                # does fewer matmul passes than kb²-sized block inverses.
+                # O(n³/3) LU and shrinks storage n² -> 3·kb·n.  Wide bands
+                # (kb ≥ 256) stay dense up to n=1024, where the dense
+                # factorization does fewer passes than kb²-sized block
+                # solves (a rule not yet re-measured on the GPU).
                 method = "band"
             elif resistive:
                 if self.stamps.n > _DENSE_BATCH_MAX_N:
@@ -752,8 +709,8 @@ class BatchedSolver:
                 method = "block"
             elif self.stamps.n_kcl >= 256 and _schur_supported(self.stamps):
                 # Big node block + few branch equations: block elimination
-                # beats XLA's column-sequential pivoted LU by ~an order of
-                # magnitude on the MXU.
+                # on the SPD node block, a small pivoted solve on the
+                # branch Schur complement.
                 method = "schur"
             else:
                 if self.stamps.n > _DENSE_BATCH_MAX_N:
@@ -806,13 +763,14 @@ class BatchedSolver:
                 f"has bandwidth {bandwidth(self.stamps)}"
             )
         self.method = method
+        from nodal_tpu.ops.pallas_scalar_band import sband_solver
+
+        # The scalar-band kernel where the solve is lowered for a GPU, its
+        # lax.scan form elsewhere.
+        sband_core = sband_solver(interpret)
 
         if method == "tridiag":
-            # f64 on TPU: no native f64 — route onto the refined tier
-            # (f32 PCR solves + f64 band residuals) like the band path,
-            # instead of a crawling emulated-f64 scan.
-            if refine or (jax.default_backend() == "tpu"
-                          and jnp.dtype(dtype) == jnp.float64):
+            if refine:
                 solve_batch = _refined_tridiag_solver(self.stamps, dtype)
             else:
 
@@ -822,51 +780,20 @@ class BatchedSolver:
                     )(params_batch)
                     if rhs is not None:
                         b = rhs.astype(b.dtype)
-                    # Pallas VMEM-resident PCR on TPU f32 (one HBM pass)
-                    # when the chain fits VMEM; generic XLA PCR otherwise.
-                    from nodal_tpu.ops.pallas_tridiag import (
-                        pcr_fits_vmem,
-                        pcr_solve_padded,
-                    )
-
-                    if (
-                        jax.default_backend() == "tpu"
-                        and jnp.dtype(dtype) == jnp.float32
-                        and pcr_fits_vmem(self.stamps.n)
-                    ):
-                        return pcr_solve_padded(dl, d, du, b)
                     return tridiag.tridiag_solve(dl, d, du, b)
 
             # Resistive ⇒ symmetric operator: the adjoint solve is the
             # same solve with the cotangent as RHS.
             solve_rhs_t = solve_batch
-        elif method == "band":
-            plan = band_plan(self.stamps)
-            from nodal_tpu.ops.band import band_thomas_solve
-            from nodal_tpu.ops.pallas_band import (band_fits_stream,
-                                                   band_fits_vmem,
-                                                   pallas_band_solve,
-                                                   pallas_band_solve_stream)
+        elif method in ("band", "sband"):
+            if method == "band":
+                from nodal_tpu.ops.band import band_thomas_solve
 
-            on_tpu = jax.default_backend() == "tpu"
+                plan, core = band_plan(self.stamps), band_thomas_solve
+            else:
+                plan, core = sband_plan(self.stamps), sband_core
 
-            def band_core(W, b):
-                # f32 solve tier: VMEM-resident mega-kernel (kb=128,
-                # n <= 2048), the streaming grid-pipelined kernel beyond /
-                # for wide blocks, XLA scan on CPU or past the stream cap.
-                # Callers pass f32 arrays only.
-                if on_tpu and band_fits_vmem(plan.n_pad, plan.kb):
-                    return pallas_band_solve(W, b)
-                if on_tpu and band_fits_stream(plan.n_pad, plan.kb):
-                    return pallas_band_solve_stream(W, b)
-                return band_thomas_solve(W, b)
-
-            # f64 on TPU follows the dense path's policy (circuit.py): no
-            # f64 LU exists there, so it is always f32 solves + f64
-            # band-space residual refinement — same as refine=True.
-            refined = refine or (on_tpu and jnp.dtype(dtype) == jnp.float64)
-
-            if refined:
+            if refine:
                 from nodal_tpu.models.stamps import stamp_values
 
                 stamps = self.stamps
@@ -874,10 +801,9 @@ class BatchedSolver:
                 def solve_batch(params_batch, rhs=None):
                     # f32 banded solves, f64 COO residuals.  The residual
                     # comes straight from the stamp entries (O(B·nnz), the
-                    # audit's formulation) rather than a band_matvec on f64
-                    # band storage: materializing W in both f64 and f32
-                    # cost 6 GB HBM at n=5000, B=256 and OOMed the refined
-                    # tier on v5e (24.5G > 15.75G program requirement).
+                    # audit's formulation) rather than a band matvec on f64
+                    # band storage, which would hold the band in both f64
+                    # and f32.
                     B = params_batch.shape[0]
                     W, b = jax.vmap(
                         lambda p: plan.assemble(stamps, p,
@@ -885,7 +811,7 @@ class BatchedSolver:
                     )(params_batch.astype(jnp.float32))
                     if rhs is not None:
                         b = plan.rhs_to_band(rhs, jnp.float32)
-                    x = band_core(W, b).astype(jnp.float64)  # [B, n_pad]
+                    x = core(W, b).astype(jnp.float64)  # [B, n_pad]
                     g_vals, rhs_vals = jax.vmap(
                         lambda p: stamp_values(stamps, p)
                     )(params_batch.astype(jnp.float64))
@@ -897,8 +823,7 @@ class BatchedSolver:
                     for _ in range(2):
                         xn = plan.unpermute(x)  # natural order, [B, n]
                         r = b64 - _coo_apply(stamps, g_vals, xn)
-                        dx = band_core(
-                            W, plan.rhs_to_band(r, jnp.float32))
+                        dx = core(W, plan.rhs_to_band(r, jnp.float32))
                         x = x + dx.astype(jnp.float64)
                     return plan.unpermute(x)
 
@@ -910,76 +835,7 @@ class BatchedSolver:
                     )(params_batch)
                     if rhs is not None:
                         b = plan.rhs_to_band(rhs, W.dtype)
-                    return plan.unpermute(band_core(W, b))
-
-            solve_rhs_t = solve_batch  # symmetric (resistive)
-
-        elif method == "sband":
-            splan = sband_plan(self.stamps)
-            from nodal_tpu.ops.pallas_scalar_band import (
-                pallas_scalar_band_solve,
-                pallas_scalar_band_solve_stream,
-                sband_fits_stream,
-            )
-            from nodal_tpu.ops.scalar_band import scalar_band_solve_scan
-
-            on_tpu = jax.default_backend() == "tpu"
-
-            def sband_core(U, b):
-                # f32 tier: the VMEM batch-in-lanes kernel, or the
-                # row-chunk streaming variant past its reach; the lax.scan
-                # implementation everywhere else (CPU, f64 inputs).
-                if on_tpu and U.dtype == jnp.float32:
-                    if sband_fits_vmem(splan.n_pad, splan.W1):
-                        return pallas_scalar_band_solve(U, b)
-                    if sband_fits_stream(splan.n_pad, splan.W1):
-                        return pallas_scalar_band_solve_stream(U, b)
-                return scalar_band_solve_scan(U, b)
-
-            # Same policy as the band tier: f64-on-TPU routes through f32
-            # solves + exact-COO f64 defect correction.
-            refined = refine or (on_tpu and jnp.dtype(dtype) == jnp.float64)
-
-            if refined:
-                from nodal_tpu.models.stamps import stamp_values
-
-                stamps = self.stamps
-
-                def solve_batch(params_batch, rhs=None):
-                    B = params_batch.shape[0]
-                    U, b = jax.vmap(
-                        lambda p: splan.assemble(stamps, p,
-                                                 dtype=jnp.float32)
-                    )(params_batch.astype(jnp.float32))
-                    if rhs is not None:
-                        b = splan.rhs_to_band(rhs, jnp.float32)
-                    x = sband_core(U, b).astype(jnp.float64)
-                    g_vals, rhs_vals = jax.vmap(
-                        lambda p: stamp_values(stamps, p)
-                    )(params_batch.astype(jnp.float64))
-                    like = jnp.zeros((B, stamps.n), jnp.float64)
-                    if rhs is None:
-                        b64 = _coo_rhs_vec(stamps, rhs_vals, like)
-                    else:
-                        b64 = rhs.astype(jnp.float64)
-                    for _ in range(2):
-                        xn = splan.unpermute(x)
-                        r = b64 - _coo_apply(stamps, g_vals, xn)
-                        dx = sband_core(
-                            U, splan.rhs_to_band(r, jnp.float32))
-                        x = x + dx.astype(jnp.float64)
-                    return splan.unpermute(x)
-
-            else:
-
-                def solve_batch(params_batch, rhs=None):
-                    U, b = jax.vmap(
-                        lambda p: splan.assemble(self.stamps, p,
-                                                 dtype=dtype)
-                    )(params_batch)
-                    if rhs is not None:
-                        b = splan.rhs_to_band(rhs, U.dtype)
-                    return splan.unpermute(sband_core(U, b))
+                    return plan.unpermute(core(W, b))
 
             solve_rhs_t = solve_batch  # symmetric (resistive)
 
@@ -1020,28 +876,6 @@ class BatchedSolver:
             else:
 
                 def solve_batch(params_batch, rhs=None):
-                    from nodal_tpu.ops.pallas_block_lu import (
-                        _pad, lu_fits_vmem, pallas_lu_solve)
-
-                    # VMEM-resident mega-kernel: reads G once, writes x
-                    # only (the XLA path round-trips every Schur
-                    # complement through HBM).  f32 only; assembly emits
-                    # the 128-padded shape directly so no second multi-GB
-                    # copy is materialized.
-                    if (jax.default_backend() == "tpu"
-                            and jnp.dtype(dtype) == jnp.float32
-                            and lu_fits_vmem(self.stamps.n)):
-                        n_pad = _pad(self.stamps.n)
-                        G, b = jax.vmap(
-                            lambda p: assemble_dense(self.stamps, p,
-                                                     dtype=dtype,
-                                                     pad_to=n_pad)
-                        )(params_batch)
-                        if rhs is not None:
-                            b = jnp.pad(
-                                rhs.astype(dtype),
-                                [(0, 0), (0, n_pad - self.stamps.n)])
-                        return pallas_lu_solve(G, b, n_valid=self.stamps.n)
                     G, b = jax.vmap(single)(params_batch)
                     if rhs is not None:
                         b = rhs.astype(b.dtype)
@@ -1052,195 +886,62 @@ class BatchedSolver:
         elif method == "schur":
             nk = self.stamps.n_kcl
             kbe = self.stamps.n - nk
+            from nodal_tpu.ops.band import band_thomas_solve, node_band_plan
+            from nodal_tpu.ops.scalar_band import carry_fits, node_sband_plan
 
-            from nodal_tpu.ops.pallas_block_lu import (_K, _pad,
-                                                       lu_fits_vmem,
-                                                       pallas_lu_solve_multi)
-
-            from nodal_tpu.ops.band import node_band_plan
-            from nodal_tpu.ops.pallas_band import (
-                band_fits_stream,
-                band_fits_vmem,
-                pallas_band_solve_multi,
-                pallas_band_solve_multi_stream,
-            )
-
-            on_tpu = jax.default_backend() == "tpu"
-            tpu_kernels = on_tpu and kbe < _K
-            # f64 (or refine=True) on TPU: no f64 LU compiles there — the
-            # band/LU kernels factor in f32 and the result is defect-
-            # corrected against the exact f64 COO operator below, the
-            # same convention as every other refined tier.  Off-TPU the
-            # f64 request stays a direct f64 solve (branch further down).
-            tpu_refined = on_tpu and (
-                refine or jnp.dtype(dtype) == jnp.float64)
-
-            def finalize_schur(solve_batch, solve_rhs_t):
-                if tpu_refined:
-                    stamps = self.stamps
-                    core_b, core_t = solve_batch, solve_rhs_t
-
-                    def solve_batch(pb, rhs=None):
-                        x = core_b(pb, rhs)
-                        return _coo_defect_refine(
-                            stamps, pb, rhs, x,
-                            lambda r: core_b(pb, r), iters=2)
-
-                    def solve_rhs_t(pb, rhs):
-                        y = core_t(pb, rhs)
-                        return _coo_defect_refine(
-                            _transposed_stamps(stamps), pb, rhs, y,
-                            lambda r: core_t(pb, r), iters=2)
-
-                self._finalize(solve_batch, solve_rhs_t)
-            from nodal_tpu.ops.pallas_scalar_band import (
-                pallas_scalar_band_solve_multi,
-                pallas_scalar_band_solve_stream_multi,
-                sband_fits_stream,
-            )
-            from nodal_tpu.ops.scalar_band import node_sband_plan
-
+            # refine=True computes in f64 and returns f64, matching the
+            # other refined paths' convention.
+            sdtype = jnp.float64 if refine else dtype
             nsplan = node_sband_plan(self.stamps)
-            if tpu_kernels and nsplan is not None and (
-                    sband_fits_vmem(nsplan.n_pad, nsplan.W1, kbe + 1)
-                    or sband_fits_stream(nsplan.n_pad, nsplan.W1, kbe + 1)):
-                # Narrow-band node block: the scalar LDLᵀ kernel solves
-                # A⁻¹[B | bk] with every RHS column riding an augmented
-                # band slot — same plan interface as the block band tier,
-                # ~n·w² work instead of n·kb².
-                multi = (pallas_scalar_band_solve_multi
-                         if sband_fits_vmem(nsplan.n_pad, nsplan.W1,
-                                            kbe + 1)
-                         else pallas_scalar_band_solve_stream_multi)
-                assemble = _schur_band_assembler(
-                    self.stamps, jnp.float32, nsplan)
-                solve_batch, solve_rhs_t = _make_schur_band_solver(
-                    assemble, multi, nsplan, nk, kbe)
-                finalize_schur(solve_batch, solve_rhs_t)
-                return
-
             nplan = node_band_plan(self.stamps)
-            if tpu_kernels and nplan is not None and nplan.nb >= 2 \
-                    and (nplan.kb == 128 or nplan.n > 1024) \
-                    and band_fits_stream(nplan.n_pad, nplan.kb):
-                # Bandable node block: one banded multi-RHS Thomas pass
-                # computes A⁻¹[B | bk] — O(nk·kb²) instead of the dense
-                # factorization.
-                assemble = _schur_band_assembler(
-                    self.stamps, jnp.float32, nplan)
-                multi_solve = (pallas_band_solve_multi
-                               if band_fits_vmem(nplan.n_pad, nplan.kb)
-                               else pallas_band_solve_multi_stream)
+            if nsplan is not None and carry_fits(nsplan.w, kbe + 1, sdtype):
+                # Narrow-band node block: the scalar LDLᵀ solves
+                # A⁻¹[B | bk] with every RHS column riding beside the band
+                # — ~n·w² work instead of n·kb².
+                assemble = _schur_band_assembler(self.stamps, sdtype, nsplan)
                 solve_batch, solve_rhs_t = _make_schur_band_solver(
-                    assemble, multi_solve, nplan, nk, kbe)
-                finalize_schur(solve_batch, solve_rhs_t)
-                return
-
-            if nplan is not None and nplan.nb >= 2 and nk > 2048:
-                # Large bandable node block where the VMEM multi-RHS
-                # kernels do not apply (always off-TPU; on TPU every
-                # arrival here means the Pallas tiers above declined —
-                # border past their 128-RHS lane budget, or past the
-                # stream caps): the XLA scan block-Thomas multi-RHS.
+                    assemble, sband_core, nsplan, nk, kbe)
+            elif nplan is not None and nplan.nb >= 2 and nk > 2048:
+                # Large bandable node block: the block-Thomas multi-RHS.
                 # Dense assembly would materialize an n² matrix per
                 # sample — 1.6 GB at nk=20k — so the band tier is the
                 # only viable one here; it is also what lets the banded
                 # SPD probe lift the old nk ≤ 8192 cap.
-                from nodal_tpu.ops.band import band_thomas_solve
-
-                if on_tpu:
-                    # f32 scan tier (compiles fine on TPU); f64/refine
-                    # requests ride finalize_schur's exact-COO f64 defect
-                    # correction like every other TPU schur tier — a
-                    # direct f64 scan would crawl on emulated arithmetic.
-                    assemble = _schur_band_assembler(
-                        self.stamps, jnp.float32, nplan)
-                    solve_batch, solve_rhs_t = _make_schur_band_solver(
-                        assemble, band_thomas_solve, nplan, nk, kbe)
-                    finalize_schur(solve_batch, solve_rhs_t)
-                    return
-                sdtype = jnp.float64 if refine else dtype
                 assemble = _schur_band_assembler(self.stamps, sdtype, nplan)
-                # refine=True computes in f64 and returns f64, matching
-                # the other refined paths' convention.
                 solve_batch, solve_rhs_t = _make_schur_band_solver(
                     assemble, band_thomas_solve, nplan, nk, kbe)
-                self._finalize(solve_batch, solve_rhs_t)
-                return
+            else:
 
-            use_pallas = tpu_kernels and lu_fits_vmem(nk)
-            if use_pallas:
-                plan = _schur_block_assembler(self.stamps, jnp.float32,
-                                              _pad(nk))
+                def single(params):
+                    return assemble_dense(self.stamps, params, dtype=dtype)
 
-                def schur_lu_core(params_batch, rhs=None, transpose=False):
-                    A, Bm, C, D, bk, bb = jax.vmap(plan)(params_batch)
-                    if rhs is None:
-                        rk, rb = bk, bb
-                    else:
-                        rhs = rhs.astype(A.dtype)
-                        rk, rb = rhs[:, :nk], rhs[:, nk:]
+                stamps = self.stamps
+
+                def schur_dense_core(params_batch, rhs=None,
+                                     transpose=False):
+                    G, b = jax.vmap(single)(params_batch)
                     if transpose:
-                        # A is symmetric (SPD probe) — Gᵀ swaps the border.
-                        Bm, C, D = (jnp.swapaxes(C, 1, 2),
-                                    jnp.swapaxes(Bm, 1, 2),
-                                    jnp.swapaxes(D, 1, 2))
-                    R = jnp.concatenate([Bm, rk[..., None]], axis=-1)
-                    R = jnp.pad(
-                        R, [(0, 0), (0, A.shape[-1] - nk), (0, 0)]
-                    )
-                    # One multi-RHS VMEM-kernel factorization per system:
-                    # Y = A^-1 [B | bk] rides the kernel's 128 RHS lanes.
-                    Y = pallas_lu_solve_multi(A, R)[:, :nk, :]
-                    YB = Y[..., :kbe]
-                    yb = Y[..., kbe]
-                    with jax.default_matmul_precision("highest"):
-                        S = D - C @ YB
-                        rhs_b = rb - (C @ yb[..., None])[..., 0]
-                        xb = jnp.linalg.solve(S, rhs_b[..., None])[..., 0]
-                        xk = yb - (YB @ xb[..., None])[..., 0]
-                    return jnp.concatenate([xk, xb], axis=-1)
+                        # The node block is symmetric, so Gᵀ keeps the
+                        # SPD-A saddle form schur_solve requires.
+                        G = jnp.swapaxes(G, 1, 2)
+                    if rhs is not None:
+                        b = rhs.astype(b.dtype)
+                    x = block_lu.schur_solve(G, b, nk)
+                    if refine:
+                        # f64 defect correction against the exact COO
+                        # operator; the extra Schur solves are O(n²) next
+                        # to the factorization.
+                        st = (_transposed_stamps(stamps) if transpose
+                              else stamps)
+                        resolve = lambda r32: block_lu.schur_solve(  # noqa
+                            G, r32, nk)
+                        x = _coo_defect_refine(st, params_batch, rhs, x,
+                                               resolve, iters=3)
+                    return x
 
-                finalize_schur(
-                    schur_lu_core,
-                    lambda pb, rhs: schur_lu_core(pb, rhs, transpose=True),
-                )
-                return
-
-            # Dense fallback: f32 assembly on TPU (f64/refine requests are
-            # served by the internal COO defect correction instead — an f64
-            # factorization would not compile there).
-            adtype = jnp.float32 if on_tpu else dtype
-            do_refine = refine or tpu_refined
-
-            def single(params):
-                return assemble_dense(self.stamps, params, dtype=adtype)
-
-            stamps = self.stamps
-
-            def schur_dense_core(params_batch, rhs=None, transpose=False):
-                G, b = jax.vmap(single)(params_batch)
-                if transpose:
-                    # The node block is symmetric, so Gᵀ keeps the SPD-A
-                    # saddle form schur_solve requires.
-                    G = jnp.swapaxes(G, 1, 2)
-                if rhs is not None:
-                    b = rhs.astype(b.dtype)
-                x = block_lu.schur_solve(G, b, nk)
-                if do_refine:
-                    # f64 defect correction against the exact COO
-                    # operator; the extra Schur solves are O(n²) next to
-                    # the factorization.
-                    st = _transposed_stamps(stamps) if transpose else stamps
-                    resolve = lambda r32: block_lu.schur_solve(  # noqa
-                        G, r32, nk)
-                    x = _coo_defect_refine(st, params_batch, rhs, x,
-                                           resolve, iters=3)
-                return x
-
-            solve_batch = schur_dense_core
-            solve_rhs_t = lambda pb, rhs: schur_dense_core(  # noqa: E731
-                pb, rhs, transpose=True)
+                solve_batch = schur_dense_core
+                solve_rhs_t = lambda pb, rhs: schur_dense_core(  # noqa: E731
+                    pb, rhs, transpose=True)
 
         else:
             dense_core = make_dense_core(self.stamps, dtype, refine)
@@ -1254,14 +955,16 @@ class BatchedSolver:
         """Wrap the method's solver in an implicit-function custom VJP.
 
         Makes every BatchedSolver differentiable with ``jax.grad`` —
-        through the Pallas kernels, which have no autodiff rules of their
-        own.  See :func:`make_adjoint_solver`.
+        through the Pallas kernel, which has no autodiff rule of its own.
+        See :func:`make_adjoint_solver`.
         """
+        # The tier's per-batch (forward, transpose) pair before the
+        # contract layer: the sharded solver wraps it in shard_map.
+        self.solve_pair = (solve_batch, solve_rhs_t)
         if self._auto_escalate:
             solve_batch = _escalating_solver(self.stamps, solve_batch)
             solve_rhs_t = _escalating_solver(self.stamps, solve_rhs_t,
                                              transpose=True)
-        self._solve_rhs_t = solve_rhs_t  # diagnostics/tests; unjitted
         self._solve = jax.jit(
             make_adjoint_solver(self.stamps, solve_batch, solve_rhs_t))
 
@@ -1288,11 +991,10 @@ class BatchedSolver:
         COO stamp entries (``r = b − scatter_add(g_vals · x[cols])``), so
         it costs O(B·nnz) f64 work and memory with NO matrix — dense,
         band, or otherwise — ever built.  (Earlier shapes of this audit
-        re-assembled per-method operators; at B=4096 on a 1k-node mesh
-        that was a measured 13 GB HBM OOM on TPU and ~26 s of chunked
-        re-assembly on CPU, vs ~0.2 s for this form.)  It runs on the
-        host CPU backend when one exists: the math is f64 and TPU f64 is
-        emulated.
+        re-assembled per-method operators, which at B=4096 on a 1k-node
+        mesh no longer fit device memory.)  It runs on the host CPU
+        backend when one exists, so the audit is independent of the
+        accelerator that produced the solutions.
         """
         import contextlib
 
@@ -1558,9 +1260,9 @@ def sensitivities(
 
     import contextlib
 
-    # Follow the Circuit's device-placement policy (small systems and f64
-    # LU belong on the host CPU backend; TPU has no f64 LU) — both the
-    # solver's method dispatch and the solve must run under the scope.
+    # Follow the Circuit's device-placement policy (small systems belong on
+    # the host CPU backend) — both the solver's method dispatch and the
+    # solve must run under the scope.
     # f64 also needs x64 genuinely on: without it jnp would silently
     # truncate to f32 while this API promises adjoint-accurate numbers.
     scope = (circuit._device_scope() if hasattr(circuit, "_device_scope")

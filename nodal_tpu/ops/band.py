@@ -3,33 +3,32 @@
 Most real circuits are *locally* connected — 2D meshes, buses, ladders
 with cross-ties — so after a bandwidth-minimizing reordering their MNA
 matrix has half-bandwidth w far below n.  The dense blocked LU
-(ops/block_lu.py, ops/pallas_block_lu.py) spends O(n³/3) MXU flops and
-4 MB/system of HBM traffic on a matrix that is ~99% structural zeros.
+(ops/block_lu.py) spends O(n³/3) flops and 4 MB/system of device-memory
+traffic on a matrix that is ~99% structural zeros.
 
 This module reorders the system with reverse Cuthill-McKee (host-side,
 once per topology), stores it block-tridiagonally with kb×kb blocks
-(kb ∈ {128, 256, 384} — the smallest multiple of the MXU tile that
-covers the half-bandwidth), and solves with no-pivot block-Thomas:
+(kb the smallest multiple of ``_K`` that covers the half-bandwidth), and
+solves with no-pivot block-Thomas:
 
     S_0 = D_0
     S_i = D_i − L_i S_{i-1}^{-1} U_{i-1}        (Schur recursion)
     x via one forward + one backward block sweep
 
 Work drops from O(n³/3) to O(n·K²) and per-system memory from n² to
-3·K·n — at n=1024 that is ~2.7× fewer matmul passes and ~2.7× less HBM
-traffic than the full blocked LU.  The Schur recursion preserves diagonal
+3·K·n — at n=1024 and K=128 that is ~2.7× fewer matmul passes and ~2.7×
+less memory traffic than the full blocked LU.  The Schur recursion preserves diagonal
 dominance (same no-pivot stability domain as ops/block_lu.py: the block
 sequence here *is* the blocked-LU elimination restricted to the band).
 
 The reference stamps into scipy containers and calls SuperLU with no
 structure awareness (reference nodal.py:325,350); there is no banded or
-reordered path to port — this is the TPU-native replacement.
+reordered path to port.
 
 Layout: ``W[b, B_r, r, c]`` holds block row ``B_r`` as the [K, 3K]
 concatenation ``[L | D | U]`` (columns ``(B_r−1)·K .. (B_r+2)·K`` of the
-reordered matrix).  :func:`band_thomas_solve` is the run-anywhere XLA
-implementation (used on CPU, for f64 refinement, and as the test oracle);
-ops/pallas_band.py holds the VMEM-resident TPU kernel.
+reordered matrix).  :func:`band_thomas_solve` is the XLA implementation
+on every backend.
 """
 
 from __future__ import annotations
@@ -43,12 +42,14 @@ import jax.numpy as jnp
 
 from nodal_tpu.models.stamps import StampTensors, stamp_values
 
-_K = 128  # MXU tile; block sizes are multiples of this
+#: Block-size quantum: block sizes are multiples of this.  64 beat 128 on
+#: an H100 where both apply (25×40 mesh, B=1024: 12.6 vs 23.5 ms; PERF.md).
+_K = 64
 
 #: Candidate block sizes.  Cost scales as n·kb², so the plan picks the
 #: smallest that covers the half-bandwidth; past 384 the dense/AMG paths
 #: win and the plan returns None.
-_KB_CHOICES = (128, 256, 384)
+_KB_CHOICES = tuple(range(_K, 385, _K))
 
 
 def rcm_order(n: int, rows: np.ndarray, cols: np.ndarray) -> np.ndarray:
@@ -156,11 +157,9 @@ class BandPlan:
         small (the common case — local circuits have a handful of stamps
         per matrix row): W is produced by ONE fused output pass comparing
         each row's few band-column targets against an iota, instead of a
-        scatter-add into a zero-initialized [n_pad·3kb] buffer.  XLA's TPU
-        scatter measured ~4x off stream bandwidth here (14 ms of the 57 ms
-        batched mesh solve at B=1024); the same rewrite removed the 13 ms
-        tridiagonal-assembly scatter in round 2.  Falls back to the
-        scatter for dense rows.
+        scatter-add into a zero-initialized [n_pad·3kb] buffer (a scatter
+        runs well below streaming bandwidth).  Falls back to the scatter
+        for dense rows.
         """
         gf = self._gather_fold()
         if gf is not None:
@@ -377,11 +376,16 @@ def band_thomas_solve(W, b):
     """No-pivot block-Thomas solve — the run-anywhere XLA implementation.
 
     ``W`` [..., nb, K, 3K], ``b`` [..., nb*K] (vector) or [..., nb*K, r]
-    (multi-RHS).  jit/vmap-friendly; any float dtype (this is also the f64
-    path).  Stability domain: diagonally dominant / SPD systems, like
-    ops.block_lu.  On TPU the Pallas kernel (ops/pallas_band.py) replaces
-    this with a VMEM-resident version.
+    (multi-RHS).  jit/vmap-friendly; any float dtype.  Stability domain:
+    diagonally dominant / SPD systems, like ops.block_lu.  The block
+    products and solves run at 'highest' precision: f32 on the GPU would
+    otherwise use TF32 (about three decimal digits).
     """
+    with jax.default_matmul_precision("highest"):
+        return _band_thomas(W, b)
+
+
+def _band_thomas(W, b):
     nb, kb = W.shape[-3], W.shape[-2]
     vector_rhs = b.ndim == W.ndim - 2
     if vector_rhs:

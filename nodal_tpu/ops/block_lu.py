@@ -1,20 +1,17 @@
-"""Batched blocked LU (no pivoting) — the MXU-native dense direct solver.
+"""Batched blocked LU (no pivoting) for diagonally dominant systems.
 
-XLA's generic ``LuDecomposition`` on TPU is a column-sequential expander
-that reaches well under 1% of peak (measured ~820 solves/s at n=1000,
-B=256 on v5e).  For the symmetric diagonally-dominant systems produced by
-resistive networks, pivoting is unnecessary, so the factorization can be
+For the symmetric diagonally-dominant systems produced by resistive
+networks, pivoting is unnecessary, so the factorization can be
 reorganized into block operations that are almost entirely 128-wide
-matmuls — exactly what the MXU wants:
+batched matmuls:
 
     for each 128-block column j:
         Dinv_j = inv(D_jj)                  (small batched inverse)
         L_ij   = A_ij @ Dinv_j              (tall matmul)
-        A_kl  -= L_kj @ A_jl                (rank-128 MXU update)
+        A_kl  -= L_kj @ A_jl                (rank-128 update)
 
 The packed factor stores Dinv on the diagonal blocks, so both triangular
-solves are pure matmuls too.  Measured ~20-40x over the XLA expander at
-n=1000.
+solves are pure matmuls too.
 
 Stability domain: diagonally dominant / SPD systems (all-resistor MNA,
 grounded Laplacians).  General MNA systems with voltage sources have
@@ -26,7 +23,6 @@ f64 COO operator (nodal_tpu.batch._coo_defect_refine).
 
 from __future__ import annotations
 
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -46,43 +42,7 @@ def _pad_to_block(A, b, block: int):
     return A, b, n
 
 
-def _inv_block(D, newton_iters: int = 12):
-    """Batched inverse of [..., k, k] diagonal blocks via Newton-Schulz.
-
-    ``X <- X (2I - D X)``, pure matmuls — the XLA ``inv`` expander is a
-    column-sequential LU that costs ~19 ms per [256,128,128] call on v5e,
-    versus ~0.06 ms per MXU matmul here.
-
-    Start: **Jacobi** ``X0 = diag(1/d_ii)``.  On this solver's stability
-    domain (diagonally dominant blocks — and Schur complements of
-    diagonally dominant matrices stay diagonally dominant) the iteration
-    matrix ``I − X0 D`` has spectral radius < 1 and the Jacobi start
-    converges in ~half the iterations of the classical transpose start
-    ``D^T/(‖D‖₁‖D‖∞)`` (measured: 11-12 vs 23 iterations to 1e-6 on grid
-    Laplacian / random-network blocks).  Iteration count covers cond(D) up
-    to ~1e4 with f32-level residual; the refine tier's f64 defect
-    correction (nodal_tpu.batch._coo_defect_refine) mops up the remainder.
-
-    ``newton_iters=0`` falls back to the exact expander (used on CPU where
-    the tradeoff reverses).
-    """
-    if newton_iters == 0:
-        return jnp.linalg.inv(D)
-    k = D.shape[-1]
-    diag = jnp.diagonal(D, axis1=-2, axis2=-1)
-    X = jnp.zeros_like(D) + (1.0 / diag)[..., None] * jnp.eye(k, dtype=D.dtype)
-    I2 = 2.0 * jnp.eye(k, dtype=D.dtype)
-    for _ in range(newton_iters):
-        X = X @ (I2 - D @ X)
-    return X
-
-
-def _default_newton_iters() -> int:
-    # TPU: matmul-only Newton wins by ~8x; CPU: LAPACK-backed inv wins.
-    return 12 if jax.default_backend() == "tpu" else 0
-
-
-def blocked_factor(A, block: int = _BLOCK, newton_iters: int | None = None):
+def blocked_factor(A, block: int = _BLOCK):
     """Panel block LU of [..., n, n] (n a multiple of ``block``), no pivoting.
 
     Returns a list of panels ``(Dinv_t, L_t, U_t)`` where ``L_t`` is the
@@ -94,13 +54,13 @@ def blocked_factor(A, block: int = _BLOCK, newton_iters: int | None = None):
     """
     n = A.shape[-1]
     assert n % block == 0, (n, block)
-    if newton_iters is None:
-        newton_iters = _default_newton_iters()
     nb = n // block
     panels = []
     S = A
     for _ in range(nb):
-        Dinv = _inv_block(S[..., :block, :block], newton_iters)
+        # Exact batched inverse: on an H100 it beat 12 Newton-Schulz
+        # matmul steps on both time and accuracy (PERF.md).
+        Dinv = jnp.linalg.inv(S[..., :block, :block])
         U = S[..., :block, block:]
         L = S[..., block:, :block] @ Dinv
         S = S[..., block:, block:] - L @ U
@@ -137,10 +97,9 @@ def blocked_solve(A, b, block: int = _BLOCK, precision: str = "highest"):
     """No-pivot blocked dense solve for diagonally-dominant/SPD systems.
 
     Accepts any n (pads internally to the block size).  vmap/jit-friendly.
-    ``precision`` sets the matmul passes on TPU (f32 inputs): "highest" =
-    6-pass bf16 (~f32-exact), "high" = 3-pass (bf16x3, ~1e-6 relative),
-    "default" = single-pass bf16 (~1e-2) — pair the lower tiers with
-    refinement.
+    ``precision`` sets the matmul precision for f32 inputs: "highest" is
+    true f32; lower settings run in TF32 on the GPU (~1e-3 relative) and
+    need refinement.
     """
     with jax.default_matmul_precision(precision):
         Ap, bp, n = _pad_to_block(A, b, block)
@@ -163,7 +122,7 @@ def schur_solve(G, b, nk: int, block: int = _BLOCK,
     no-pivot blocked LU's home turf — while the zero-diagonal branch rows
     that would break a no-pivot factorization are eliminated exactly:
 
-        A Y = [B | bk]      (one multi-RHS blocked solve, MXU matmuls)
+        A Y = [B | bk]      (one multi-RHS blocked solve, batched matmuls)
         S   = D - C Y_B     (small dense Schur complement)
         S xb = bb - C y_b   (pivoted LU — kbe is small, XLA's is fine)
         xk  = y_b - Y_B xb
@@ -198,9 +157,3 @@ def schur_solve(G, b, nk: int, block: int = _BLOCK,
         xb = jnp.linalg.solve(S, rhs_b[..., None])[..., 0]
         xk = yb - (YB @ xb[..., None])[..., 0]
     return jnp.concatenate([xk, xb], axis=-1)
-
-
-# (The old blocked_solve_refined lived here; the block refine tier now
-# factors once and defect-corrects against the exact f64 COO operator —
-# nodal_tpu.batch._coo_defect_refine — which is both more accurate and
-# assembly-free.)

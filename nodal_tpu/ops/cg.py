@@ -1,9 +1,9 @@
 """Matrix-free preconditioned Krylov solvers (CG / BiCGStab).
 
 Replaces SuperLU reached through ``scipy.sparse.linalg.spsolve`` in the
-reference (reference nodal.py:325) with TPU-friendly iterative methods:
-everything is elementwise + matvec, so it runs in true f64 on TPU (emulated)
-or f32, jits into a single ``lax.while_loop``, and composes with ``vmap``
+reference (reference nodal.py:325) with accelerator-friendly iterative
+methods: everything is elementwise + matvec, so it runs in f64 or f32,
+jits into a single ``lax.while_loop``, and composes with ``vmap``
 and ``shard_map`` (the matvec closure may contain collectives).
 
 CG is used for SPD systems — the grounded-Laplacian systems of purely

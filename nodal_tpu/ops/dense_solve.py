@@ -1,20 +1,10 @@
-"""Dense MNA solves: jitted LU with mixed-precision iterative refinement.
+"""Dense MNA solves: jitted pivoted LU.
 
 Replaces LAPACK ``dgesv`` reached through ``np.linalg.solve`` in the
-reference (reference nodal.py:327).  TPU specifics that shape this design
-(probed on v5e):
-
-* XLA's ``LuDecomposition`` on TPU supports **f32 only** — a straight f64
-  ``jnp.linalg.solve`` fails to compile on TPU.
-* f64 *elementwise/matmul* ops do work on TPU (software-emulated, slower).
-
-So the TPU-native f64-accuracy path is **mixed-precision iterative
-refinement**: factor once in f32 on the MXU, then refine with residuals
-computed in f64.  This converges to f64-level accuracy whenever
-cond(G) ≲ 1/eps_f32 ≈ 1e7 — which covers resistive networks and mildly
-stiff circuits.  For pathologically conditioned systems (the OPMODEL opamp
-macromodel spans 1e7…1e-12, cond ≳ 1e12) the solver falls back to a native
-f64 LU on the host CPU backend.
+reference (reference nodal.py:327).  The accelerator factors in the
+requested dtype (f64 LU is native on the GPU); pathologically conditioned
+systems that fail the residual gate fall back to a native f64 LU on the
+host CPU backend (:func:`solve_on_cpu`).
 """
 
 from __future__ import annotations
@@ -23,50 +13,17 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import jax.scipy.linalg as jsl
-
-# Refinement iteration count: each iteration gains ~7 decimal digits
-# (eps_f32); 3 is enough to go f32 -> f64 accuracy with margin.
-_REFINE_ITERS = 3
 
 
 def solve_dense(G, b):
     """Plain jitted dense solve in the dtype of ``G`` (vmap-friendly).
 
-    Traced under 'highest' matmul precision: XLA's TPU LU otherwise runs
-    its inner dot_generals as single-pass bf16, costing ~2e-2 relative
-    error on f32 inputs (measured on v5e).  'highest' keeps true fp32.
+    Traced under 'highest' matmul precision: the LU's inner products would
+    otherwise run in TF32 for f32 inputs on the GPU (about three decimal
+    digits).
     """
     with jax.default_matmul_precision("highest"):
         return jnp.linalg.solve(G, b)
-
-
-def solve_refined(G, b, iters: int = _REFINE_ITERS):
-    """f32 LU factorization + f64-residual iterative refinement.
-
-    ``G``/``b`` may be f32 or f64; the returned solution is f64.  The
-    factorization runs on the MXU in f32; residuals ``b - G x`` run in
-    (emulated) f64.  jit/vmap-friendly.
-    """
-    G64 = G.astype(jnp.float64)
-    b64 = b.astype(jnp.float64)
-    with jax.default_matmul_precision("highest"):
-        lu, piv = jsl.lu_factor(G.astype(jnp.float32))
-
-        x = jsl.lu_solve((lu, piv), b64.astype(jnp.float32)).astype(jnp.float64)
-
-        def refine(x, _):
-            r = b64 - _matvec_hi(G64, x)
-            dx = jsl.lu_solve((lu, piv), r.astype(jnp.float32))
-            return x + dx.astype(jnp.float64), None
-
-        x, _ = jax.lax.scan(refine, x, None, length=iters)
-    return x
-
-
-def _matvec_hi(G, x):
-    """Matrix-vector product at highest available precision."""
-    return jnp.dot(G, x, precision=jax.lax.Precision.HIGHEST)
 
 
 @functools.cache
@@ -76,24 +33,9 @@ def _cpu_device():
 
 def solve_on_cpu(G, b):
     """Native f64 LU on the host CPU backend (for ill-conditioned systems
-    whose f32 factorization cannot be refined)."""
+    whose accelerator solve failed the residual gate)."""
     cpu = _cpu_device()
     G_h = jax.device_put(jnp.asarray(G, dtype=jnp.float64), cpu)
     b_h = jax.device_put(jnp.asarray(b, dtype=jnp.float64), cpu)
     with jax.default_device(cpu):
         return jnp.linalg.solve(G_h, b_h)
-
-
-def solve_auto(G, b, dtype):
-    """Pick the right dense path for the requested dtype on the device where
-    ``G`` actually lives (Circuit may have placed it on the host CPU backend
-    even when the default platform is TPU).
-
-    * f32 anywhere, or f64 on CPU/GPU: direct jitted LU.
-    * f64 on TPU: f32 LU + f64 iterative refinement (TPU-native), since the
-      TPU compiler has no f64 LU.
-    """
-    platform = next(iter(G.devices())).platform
-    if dtype == jnp.float64 and platform == "tpu":
-        return solve_refined(G, b)
-    return solve_dense(jnp.asarray(G, dtype=dtype), jnp.asarray(b, dtype=dtype))

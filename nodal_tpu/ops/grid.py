@@ -20,8 +20,7 @@ unit resistors bridge adjacent blocks, so the coarse grid is again a uniform
 resistor grid with doubled edge weight — ``P^T L_w P = L_{2w}`` holds
 exactly for prolongation-by-replication, including boundary rows.  The
 coarsest level runs many rolled Jacobi sweeps with mean projection — an
-exact pinv solve would embed a constant matrix, which costs ~100 s of
-remote-TPU compile time (NOTES.md).
+exact pinv solve would embed a constant matrix in the program.
 """
 
 from __future__ import annotations
@@ -41,10 +40,10 @@ from nodal_tpu.ops.cg import SolveInfo, cg
 _JACOBI_OMEGA = 0.8
 _COARSEST_SIZE = 8  # stop coarsening when min(H, W) <= this
 # Jacobi sweeps for the coarsest level.  An exact pinv matmul would be
-# mathematically nicer, but a matmul against an embedded constant matrix
-# costs ~100 s of remote-TPU compile time (measured); at <=8x8 a hundred
-# pure-stencil sweeps (rolled into one fori_loop) solve the level to
-# preconditioner accuracy and keep the whole V-cycle constant-free.
+# mathematically nicer, but it embeds a constant matrix in the program;
+# at <=8x8 a hundred pure-stencil sweeps (rolled into one fori_loop) solve
+# the level to preconditioner accuracy and keep the whole V-cycle
+# constant-free.
 # Tuned on a 512-grid point-source problem: (sweeps=96, coarsest=8, nu=1)
 # gives 42 CG iterations vs 50 for (48, 4, 1).
 _COARSE_SWEEPS = 96
@@ -159,29 +158,13 @@ def _restrict_bilinear(r):
     return fold_axis0(fold_axis0(r.T).T)
 
 
-def make_mg_preconditioner(h: int, w: int, dtype, nu: int = 1,
-                           backend: str = "auto"):
+def make_mg_preconditioner(h: int, w: int, dtype, nu: int = 1):
     """Symmetric V(nu, nu) multigrid cycle as a linear preconditioner.
 
     Returns M(r) ≈ L⁺ r (mean-zero in, mean-zero out), fixed and SPD, safe
-    inside CG.
-
-    ``backend="pallas"`` fuses the cycle into a handful of Pallas
-    mega-kernels (nodal_tpu.ops.pallas_stencil): levels that fit VMEM run
-    as ONE kernel, larger finest levels use the ghost-zone fused smoother.
-    v5e is per-op-overhead bound at these sizes, so fewer launches beat any
-    micro-optimization.  "auto" = pallas on TPU, xla elsewhere.
+    inside CG.  Plain XLA: each Jacobi sweep and each transfer fuses into
+    a few elementwise kernels.
     """
-    if backend == "auto":
-        on_tpu = jax.default_backend() == "tpu"
-        f32 = jnp.dtype(dtype) == jnp.float32
-        backend = (
-            "pallas"
-            if (on_tpu and f32 and _pallas_shapes_ok(h, w, 4))
-            else "xla"
-        )
-    if backend == "pallas":
-        return _make_pallas_preconditioner(h, w, dtype, nu)
     levels = _build_levels(h, w, 1.0)  # bilinear transfers: same weight
 
     def jacobi(x, r, weight, sweeps):
@@ -220,59 +203,6 @@ def make_mg_preconditioner(h: int, w: int, dtype, nu: int = 1,
     return M
 
 
-_PALLAS_VCYCLE_BYTES = 2 * 1024 * 1024  # mega-kernel cutoff (512^2 f32)
-
-
-def _pallas_shapes_ok(h: int, w: int, itemsize: int) -> bool:
-    """True iff the Pallas MG kernels support this hierarchy: every level
-    above the mega-kernel cutoff must tile into 256-row bands with even
-    dims, and the mega-kernel entry level must fit its VMEM budget (which
-    an odd-dimension stop above ~4 MB would violate)."""
-    while h * w * itemsize > _PALLAS_VCYCLE_BYTES:
-        if h % 256 or h // 256 < 2 or w % 2 or h % 2:
-            return False
-        h, w = h // 2, w // 2
-    return True
-
-
-def _make_pallas_preconditioner(h: int, w: int, dtype, nu: int):
-    from nodal_tpu.ops.pallas_stencil import (
-        fused_presmooth_restrict,
-        fused_prolong_postsmooth,
-        fused_vcycle,
-    )
-
-    if not _pallas_shapes_ok(h, w, jnp.dtype(dtype).itemsize):
-        raise ValueError(
-            f"pallas MG backend does not support a {h}x{w} grid (levels "
-            "above the VMEM cutoff must be even and 256-row-tileable); "
-            "use mg_backend='xla'"
-        )
-
-    itemsize = jnp.dtype(dtype).itemsize
-
-    def descend(r, weight):
-        hh, ww = r.shape
-        if hh * ww * itemsize <= _PALLAS_VCYCLE_BYTES or hh % 2 or ww % 2:
-            return fused_vcycle(
-                r, weight=weight, omega=_JACOBI_OMEGA, nu=nu,
-                coarse_sweeps=_COARSE_SWEEPS, coarsest=_COARSEST_SIZE,
-            )
-        # Finest level(s): one kernel per V-cycle wing (V(1,1) form).
-        # Bilinear transfers pair with a same-weight coarse operator
-        # (_build_levels weight_factor=1.0 rationale).
-        rc = fused_presmooth_restrict(r, weight=weight, omega=_JACOBI_OMEGA)
-        zc = descend(rc, weight)
-        return fused_prolong_postsmooth(r, zc, weight=weight,
-                                        omega=_JACOBI_OMEGA)
-
-    def M(r):
-        out = descend(r, 1.0)
-        return out - jnp.mean(out)
-
-    return M
-
-
 def make_grid_operator(h: int, w: int, dtype):
     """The SPD regularized Neumann operator ``A x = L x + mean(x)``.
 
@@ -288,8 +218,8 @@ def make_grid_operator(h: int, w: int, dtype):
     return matvec
 
 
-def grid_solve(h, w, b, *, dtype=jnp.float32, tol=1e-7, maxiter=None, mg=True,
-               mg_backend: str = "auto", fused_cg: bool = False):
+def grid_solve(h, w, b, *, dtype=jnp.float32, tol=1e-7, maxiter=None,
+               mg=True):
     """Solve the grid system for an arbitrary zero-sum injection field ``b``.
 
     Returns ``(x, SolveInfo)`` with x mean-zero.  jit-friendly given static
@@ -298,35 +228,7 @@ def grid_solve(h, w, b, *, dtype=jnp.float32, tol=1e-7, maxiter=None, mg=True,
     b = jnp.asarray(b, dtype=dtype)
     if maxiter is None:
         maxiter = 200 if mg else 20 * max(h, w)
-    backend = mg_backend
-    if backend == "auto":
-        on_tpu = jax.default_backend() == "tpu"
-        backend = (
-            "pallas"
-            if (
-                on_tpu
-                and jnp.dtype(dtype) == jnp.float32
-                and _pallas_shapes_ok(h, w, jnp.dtype(dtype).itemsize)
-            )
-            else "xla"
-        )
-    M = (make_mg_preconditioner(h, w, dtype, backend=backend)
-         if mg else None)
-    itemsize = jnp.dtype(dtype).itemsize
-    if (
-        fused_cg
-        and mg
-        and backend == "pallas"
-        and h * w * itemsize > _PALLAS_VCYCLE_BYTES
-        and h % 256 == 0
-        and h // 256 >= 2
-    ):
-        # Opt-in: CG algebra as fused Pallas kernels (ops.pallas_cg).
-        # Measured at 1024²: 32 ms vs 33 ms with the plain loop — the MG
-        # wings already dominate — at ~3x the compile time, so not default.
-        from nodal_tpu.ops.pallas_cg import fused_grid_cg
-
-        return fused_grid_cg(b - jnp.mean(b), M, tol=tol, maxiter=maxiter)
+    M = make_mg_preconditioner(h, w, dtype) if mg else None
     matvec = make_grid_operator(h, w, dtype)
     return cg(matvec, b - jnp.mean(b), preconditioner=M, tol=tol, maxiter=maxiter)
 
@@ -341,7 +243,6 @@ def grid_equivalent_resistance_many(
     tol=1e-7,
     maxiter=None,
     mg: bool = True,
-    mg_backend: str = "auto",
 ):
     """Equivalent resistance for MANY probe pairs at once.
 
@@ -360,7 +261,7 @@ def grid_equivalent_resistance_many(
             .at[br, bc].add(-1.0)
         )
         x, info = grid_solve(h, w, rhs, dtype=dtype, tol=tol,
-                             maxiter=maxiter, mg=mg, mg_backend=mg_backend)
+                             maxiter=maxiter, mg=mg)
         return (x[ar, ac] - x[br, bc]) * resistance, info.residual
 
     return jax.vmap(one)(pairs)
@@ -377,7 +278,6 @@ def grid_equivalent_resistance(
     tol=1e-7,
     maxiter=None,
     mg: bool = True,
-    mg_backend: str = "auto",
 ):
     """Equivalent resistance between grid nodes ``a`` and ``b`` on an H×W
     grid of equal resistors (1 A probe current, R = potential difference;
@@ -391,6 +291,6 @@ def grid_equivalent_resistance(
         .at[b[0], b[1]].add(-1.0)
     )
     x, info = grid_solve(h, w, rhs, dtype=dtype, tol=tol, maxiter=maxiter,
-                         mg=mg, mg_backend=mg_backend)
+                         mg=mg)
     r = (x[a[0], a[1]] - x[b[0], b[1]]) * resistance
     return r, info

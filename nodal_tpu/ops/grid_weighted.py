@@ -2,8 +2,8 @@
 
 Generalizes ops/grid.py from uniform unit resistors to an arbitrary
 conductance field — ``gx[h, w-1]`` on horizontal edges, ``gy[h-1, w]`` on
-vertical ones.  The matvec stays pure elementwise flux differencing (VPU,
-vmappable, shardable), and the Galerkin multigrid construction survives
+vertical ones.  The matvec stays pure elementwise flux differencing
+(vmappable, shardable), and the Galerkin multigrid construction survives
 intact: with prolongation-by-replication, the exact coarse operator is
 again a weighted grid whose edge weight is the SUM of the fine edges
 crossing each 2×2-block boundary (interior edges cancel) — so the

@@ -4,7 +4,7 @@ conductances.
 Extends ops/grid_weighted.py to three dimensions: conductance fields
 ``gx[d, h, w-1]`` (edges along the last axis), ``gy[d, h-1, w]`` (middle
 axis) and ``gz[d-1, h, w]`` (leading axis) on a ``d x h x w`` lattice.  The
-matvec stays pure elementwise flux differencing (VPU work, vmappable,
+matvec stays pure elementwise flux differencing (vmappable,
 shardable), and the Galerkin multigrid construction survives unchanged:
 with prolongation-by-replication over 2x2x2 blocks, the exact coarse
 operator is again a weighted lattice whose edge weight is the SUM of the
@@ -15,9 +15,8 @@ conductance field — verified against P^T L P in tests/test_grid_weighted3.py.
 
 Why this exists: 3-D lattices are the worst case for the direct band tiers
 — an a x b x L lattice has RCM half-bandwidth ~a*b (its minimum cut), which
-pushes even the kb=256 streaming block kernel to ~640x the scalar flop
-count (the 16x16x12 lattice runs 1,164 direct solves/s on v5e —
-docs/BENCHMARKS.md).  For lattice topologies the structured matrix-free
+pushes the block-band tier to kb=256 blocks, hundreds of times the scalar
+flop count.  For lattice topologies the structured matrix-free
 path sidesteps bandwidth entirely: O(n) per matvec, a handful of MG-CG
 iterations per solve, and ``vmap`` over the conductance fields gives
 batched Monte Carlo over 3-D fabrics in one compiled program.  The

@@ -1,36 +1,36 @@
-"""Pallas scalar-band LDLᵀ kernel: batch in lanes, whole solve in VMEM.
+"""Pallas (Triton) scalar-band LDLᵀ kernel: one thread per system.
 
-Counterpart of ops/scalar_band.scalar_band_solve_scan for TPU.  The block
-band tier (ops/pallas_band.py) is MXU-shaped — O(n·kb²) with kb ≥ 128 —
-which overshoots narrow bands by orders of magnitude (w=26 mesh: ~640
-MFLOP/sample vs the scalar n·w² ≈ 1.4 MFLOP).  At that flop count the MXU
-is the wrong unit entirely; this kernel runs the *scalar* banded
-factorization on the VPU with **128 independent systems in the lane
-dimension**, so every vector op advances 128 solves at once:
+GPU counterpart of ops/scalar_band.scalar_band_solve_scan.  The scan form
+runs one XLA loop step per matrix row — about 2n sequential steps per solve
+(forward elimination, then back substitution), each a separate kernel
+launch on the GPU, so at n=1000 the launch chain, not arithmetic, bounds
+the whole batch.  This kernel keeps the row loop *inside* the kernel:
 
-* layout: augmented band rows ``A[i] = [d, u_1..u_w, rhs_0.., 0-pad]`` as
-  a ``[n_tot, W1a, 128]`` VMEM block — row index in the (dynamic-friendly)
-  leading dimension, band slots in sublanes, batch in lanes;
-* elimination step i: one reciprocal, w fused roll-mask-fma row updates
-  (``pltpu.roll`` shifts the pivot row's slots so u_{r+k} lines up with
-  row i+r's slot k — the Hankel addressing of band storage);
-* RHS columns ride in augmented slots (they never shift: masked
-  separately), so forward elimination of every RHS costs nothing extra —
-  the multi-RHS form is what the Schur branch-equation path consumes;
-* backward substitution accumulates Σ m_r·x_{i+r} over a [n_tot, R8, 128]
-  x buffer, leading-dim indexed.
+* one program owns a tile of ``BLOCK_B`` batch systems, with the batch on
+  the threads (each thread runs one system's whole recurrence);
+* the band streams from device memory one row per step, laid out
+  ``[n_pad, slot, batch]`` so each slot of a row is one coalesced load;
+* the sliding window of pending updates — row ``i+j`` has received
+  ``w−j`` slot updates from earlier pivots — is the loop carry, so it
+  stays on chip (registers, spilling to L1-resident local memory for wide
+  bands): ``w(w+1)/2 + w·n_rhs`` values per system;
+* RHS columns ride beside the band and are eliminated in the same pass —
+  the multi-RHS form serves the Schur branch-equation tier, which solves
+  ``A⁻¹[B | b]`` in one factorization.
+
+Forward step i (pivot row ``p`` = raw row i minus its pending updates):
+
+    d = p_0,  m_r = p_r / d                         (r = 1..w)
+    pending(i+r)[k] += m_r · p_{r+k}                (k = 0..w−r)
+    pending_rhs(i+r) += m_r · rhs_i
+
+The multipliers and ``y_i = rhs_i / d`` go to device memory; the backward
+sweep ``x_i = y_i − Σ_r m_r · x_{i+r}`` carries the last w solution rows.
 
 Stability domain: SPD after RCM — exactly what ScalarBandPlan accepts
-(purely resistive blocks; models/stamps.py makes those symmetric by
-construction).  No Newton-Schulz, no matmuls, no bf16 anywhere: the f32
-recursion is the same arithmetic as the lax.scan reference
-(cross-validated in tests/test_scalar_band.py, bit-level deterministic —
-no adaptive stages, so shard-count never changes results).
-
-Measured on v5e (25×40 mesh, n=1000, w=26, B=1024): 77k solves/s
-sustained vs 20k for the block-Thomas kernel; full-batch COO residual
-audit 5.1e-6.  The reference has no banded solver at all (dense LAPACK /
-SuperLU at reference nodal.py:325-327).
+(purely resistive blocks).  No pivoting, no matmuls: the arithmetic is the
+same recurrence as the scan (tests/test_scalar_band.py cross-checks them
+in interpret mode).
 """
 
 from __future__ import annotations
@@ -40,369 +40,169 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from nodal_tpu.ops.pallas_block_lu import _interpret, _x32_scope
-
-_LANES = 128
-
-#: VMEM budget for one kernel instance (band copy + x buffer + transients);
-#: keep clear of the ~100 MB scoped ceiling with margin for the pipeline.
-_VMEM_BUDGET = 72 * 1024 * 1024
+#: Systems per program: one warp, one system per thread.  16, 32 and 64
+#: ran within 3% of each other on an H100 (PERF.md).
+BLOCK_B = 32
 
 
-def _r8(n_rhs: int) -> int:
-    return max(-(-n_rhs // 8) * 8, 8)
+def _kernel(u_ref, r_ref, f_ref, x_ref, *, n_pad: int, w: int, n_rhs: int,
+            barrier: bool):
+    """Factor + solve ``BLOCK_B`` systems; refs are [n_pad, slots, BLOCK_B].
+
+    ``f_ref`` receives the multipliers m_1..m_w of every row; ``x_ref``
+    first holds y = rhs'/d and is overwritten with x by the backward sweep.
+    """
+    W1 = w + 1
+    zero = jnp.zeros(x_ref.shape[-1], x_ref.dtype)
+    # Carry layout: pending slot updates of rows i..i+w-1 (row i+j has w-j
+    # slots), then their pending RHS updates (n_rhs each).
+    acc_len = [w - j for j in range(w)]
+
+    def unflatten(flat):
+        acc, pos = [], 0
+        for ln in acc_len:
+            acc.append(list(flat[pos:pos + ln]))
+            pos += ln
+        accr = [list(flat[pos + j * n_rhs:pos + (j + 1) * n_rhs])
+                for j in range(w)]
+        return acc, accr
+
+    def fwd(i, flat):
+        acc, accr = unflatten(flat)
+        p = [u_ref[i, k] for k in range(W1)]
+        rc = [r_ref[i, c] for c in range(n_rhs)]
+        if w:
+            p = [p[k] - acc[0][k] if k < w else p[k] for k in range(W1)]
+            rc = [rc[c] - accr[0][c] for c in range(n_rhs)]
+        inv = 1.0 / p[0]
+        m = [None] + [p[r] * inv for r in range(1, W1)]
+        for r in range(1, W1):
+            f_ref[i, r - 1] = m[r]
+        for c in range(n_rhs):
+            x_ref[i, c] = rc[c] * inv
+        new_acc, new_accr = [], []
+        for j in range(w):
+            r = j + 1  # the old window row that becomes new row j
+            row = []
+            for k in range(w - j):
+                v = m[r] * p[r + k]
+                if r < w and k < acc_len[r]:
+                    v = v + acc[r][k]
+                row.append(v)
+            new_acc.append(row)
+            new_accr.append([
+                m[r] * rc[c] + (accr[r][c] if r < w else 0.0)
+                for c in range(n_rhs)
+            ])
+        return tuple(v for row in new_acc for v in row) + tuple(
+            v for row in new_accr for v in row)
+
+    n_carry = sum(acc_len) + w * n_rhs
+    jax.lax.fori_loop(0, n_pad, fwd, (zero,) * n_carry)
+    if barrier:
+        # The backward sweep reads what other threads may have stored.
+        plgpu.debug_barrier()
+
+    def bwd(j, xs):
+        # xs[(r-1)*n_rhs + c] = x_{i+r}[c] for r = 1..w
+        i = n_pad - 1 - j
+        m = [f_ref[i, r] for r in range(w)]
+        new = []
+        for c in range(n_rhs):
+            s = x_ref[i, c]
+            for r in range(w):
+                s = s - m[r] * xs[r * n_rhs + c]
+            x_ref[i, c] = s
+            new.append(s)
+        return tuple(new) + xs[:(w - 1) * n_rhs] if w else xs
+
+    jax.lax.fori_loop(0, n_pad, bwd, (zero,) * (w * n_rhs))
 
 
-def _w1a(W1: int, n_rhs: int) -> int:
-    return -(-(W1 + n_rhs) // 8) * 8
-
-
-def sband_fits_vmem(n_pad: int, W1: int, n_rhs: int = 1) -> bool:
-    """Whether the VMEM-resident scalar-band kernel supports this shape."""
-    W1a = _w1a(W1, n_rhs)
-    n_tot = n_pad + W1a
-    need = n_tot * (W1a + _r8(n_rhs)) * _LANES * 4
-    return need <= _VMEM_BUDGET
-
-
-def _masks(W1: int, W1a: int, n_rhs: int, R8: int):
-    """Iota-comparison mask set shared by the kernels (pallas kernels
-    cannot capture materialized constants; these fold to immediates)."""
-    w = W1 - 1
-    iota_s = jax.lax.broadcasted_iota(jnp.int32, (W1a, 1), 0)
-    return dict(
-        w=w,
-        W1=W1,
-        W1a=W1a,
-        R8=R8,
-        rhs_slot=(iota_s >= W1).astype(jnp.float32),  # RHS slots don't shift
-        keep=((iota_s == 0) | (iota_s >= W1)).astype(jnp.float32),
-        band_mask=[
-            (iota_s <= (w - r)).astype(jnp.float32) for r in range(w + 1)
-        ],
-        e_r=[(iota_s == r).astype(jnp.float32) for r in range(w + 1)],
-        rhs_valid=(
-            jax.lax.broadcasted_iota(jnp.int32, (R8, 1), 0) < n_rhs
-        ).astype(jnp.float32),
-    )
-
-
-def _fwd_step(A, i, mk):
-    """Eliminate row i of the augmented band ref ``A`` in place."""
-    row = A[i]                                   # [W1a, 128]
-    inv = 1.0 / row[0:1, :]
-    m = row * inv
-    rhs_part = row * mk["rhs_slot"]
-    A[i] = mk["keep"] * row + (1.0 - mk["keep"]) * m
-    for r in range(1, mk["w"] + 1):
-        # q[k] = row[k+r] for band slots (pltpu.roll wants a non-negative
-        # shift; roll by W1a-r ≡ roll by -r), q[k] = row[k] for RHS slots
-        # (they stay put).
-        q = pltpu.roll(row, mk["W1a"] - r, 0) * mk["band_mask"][r] + rhs_part
-        m_r = jnp.sum(m * mk["e_r"][r], axis=0, keepdims=True)
-        A[i + r] = A[i + r] - m_r * q
-
-
-def _bwd_step(F, X, i, mk):
-    """Back-substitute row i: F holds factored rows, X the solution buffer
-    (rows beyond i already final)."""
-    row = F[i]
-    inv = 1.0 / row[0:1, :]
-    # Eliminated RHS values of this row, aligned to the X layout: roll
-    # slot W1+j down to slot j; wrapped tail masked off.
-    bp = pltpu.roll(row, mk["W1a"] - mk["W1"], 0)[0:mk["R8"], :] \
-        * mk["rhs_valid"]
-    acc = jnp.zeros((mk["R8"], _LANES), jnp.float32)
-    for r in range(1, mk["w"] + 1):
-        m_r = jnp.sum(row * mk["e_r"][r], axis=0, keepdims=True)
-        acc = acc + m_r * X[i + r]
-    X[i] = bp * inv - acc
-
-
-def _kernel_body(a_ref, out_ref, A, X, sem, *, n_pad: int, W1: int,
-                 W1a: int, n_rhs: int, R8: int):
-    """One batch tile: factorize + solve 128 systems in lockstep."""
-    n_tot = n_pad + W1a
-
-    cp = pltpu.make_async_copy(a_ref.at[pl.program_id(0)], A, sem)
-    cp.start()
-    cp.wait()
-
-    mk = _masks(W1, W1a, n_rhs, R8)
-
-    def fstep(i, carry):
-        _fwd_step(A, i, mk)
-        return carry
-
-    jax.lax.fori_loop(0, n_pad, fstep, 0, unroll=False)
-
-    X[...] = jnp.zeros((n_tot, R8, _LANES), jnp.float32)
-
-    def bstep(j, carry):
-        _bwd_step(A, X, n_pad - 1 - j, mk)
-        return carry
-
-    jax.lax.fori_loop(0, n_pad, bstep, 0, unroll=False)
-    out_ref[...] = X[0:n_pad]
-
-
-@functools.partial(jax.jit, static_argnames=("n_valid",))
-def pallas_scalar_band_solve_multi(U, R, *, n_valid: int | None = None):
+@functools.partial(jax.jit, static_argnames=("n_valid", "interpret"))
+def pallas_scalar_band_solve_multi(U, R, *, n_valid: int | None = None,
+                                   interpret: bool = False):
     """Batched multi-RHS scalar-band solve: ``U`` [B, n_pad, W1] upper band
     storage (ScalarBandPlan.assemble), ``R`` [B, n_pad, n_rhs] ->
-    x [B, n_pad, n_rhs] (f32).
+    x [B, n_pad, n_rhs] in U's dtype (f32 or f64).
 
-    ``n_valid`` trims the plan's padded row tail from the result.
+    ``n_valid`` trims the plan's padded row tail from the result;
+    ``interpret`` runs the kernel in the Pallas interpreter (tests).
     """
     B, n_pad, W1 = U.shape
     n_rhs = R.shape[-1]
-    if n_pad % 8:
-        raise ValueError(f"n_pad must be a sublane multiple, got {n_pad}")
-    if not sband_fits_vmem(n_pad, W1, n_rhs):
-        raise ValueError(
-            f"(n_pad={n_pad}, W1={W1}, n_rhs={n_rhs}) exceeds the "
-            "scalar-band VMEM budget; check sband_fits_vmem first"
-        )
-    W1a = _w1a(W1, n_rhs)
-    R8 = _r8(n_rhs)
-    n_tot = n_pad + W1a
-    U = U.astype(jnp.float32)
-    R = R.astype(jnp.float32)
+    w = W1 - 1
+    dtype = U.dtype
+    R = R.astype(dtype)
+    # Batch pad to a tile multiple with unit systems (d=1, rhs=0 -> x=0).
+    Bp = -(-B // BLOCK_B) * BLOCK_B
+    if Bp != B:
+        unit = jnp.zeros((W1,), dtype).at[0].set(1.0)
+        U = jnp.concatenate(
+            [U, jnp.broadcast_to(unit, (Bp - B, n_pad, W1))], axis=0)
+        R = jnp.concatenate(
+            [R, jnp.zeros((Bp - B, n_pad, n_rhs), dtype)], axis=0)
+    Ut = jnp.transpose(U, (1, 2, 0))  # [n_pad, W1, Bp]: batch contiguous
+    Rt = jnp.transpose(R, (1, 2, 0))
 
-    # Augmented rows [d, u, rhs..., 0-pad]; unit-diagonal scratch tail.
-    A = jnp.concatenate(
-        [
-            U,
-            R,
-            jnp.zeros((B, n_pad, W1a - W1 - n_rhs), jnp.float32),
+    def spec(slots):
+        return pl.BlockSpec((n_pad, slots, BLOCK_B), lambda t: (0, 0, t))
+
+    kernel = functools.partial(_kernel, n_pad=n_pad, w=w, n_rhs=n_rhs,
+                               barrier=not interpret)
+    _, xt = pl.pallas_call(
+        kernel,
+        grid=(Bp // BLOCK_B,),
+        in_specs=[spec(W1), spec(n_rhs)],
+        out_specs=[spec(max(w, 1)), spec(n_rhs)],
+        out_shape=[
+            jax.ShapeDtypeStruct((n_pad, max(w, 1), Bp), dtype),
+            jax.ShapeDtypeStruct((n_pad, n_rhs, Bp), dtype),
         ],
-        axis=2,
-    )
-    unit = jnp.zeros((W1a,), jnp.float32).at[0].set(1.0)
-    A = jnp.concatenate(
-        [A, jnp.broadcast_to(unit, (B, W1a, W1a))], axis=1
-    )
-    # Batch pad to a lane multiple with unit systems (d=1, rhs=0 -> x=0).
-    Bp = -(-B // _LANES) * _LANES
-    if Bp != B:
-        A = jnp.concatenate(
-            [A, jnp.broadcast_to(unit, (Bp - B, n_tot, W1a))], axis=0
-        )
-    tiles = Bp // _LANES
-    # [tiles, n_tot, W1a, 128]: one contiguous DMA per kernel instance.
-    At = jnp.transpose(
-        A.reshape(tiles, _LANES, n_tot, W1a), (0, 2, 3, 1)
-    )
-
-    kernel = functools.partial(
-        _kernel_body, n_pad=n_pad, W1=W1, W1a=W1a, n_rhs=n_rhs, R8=R8
-    )
-    with _x32_scope():
-        out = pl.pallas_call(
-            kernel,
-            grid=(tiles,),
-            in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-            out_specs=pl.BlockSpec(
-                (n_pad, R8, _LANES), lambda t: (0, 0, t)
-            ),
-            out_shape=jax.ShapeDtypeStruct((n_pad, R8, Bp), jnp.float32),
-            scratch_shapes=[
-                pltpu.VMEM((n_tot, W1a, _LANES), jnp.float32),
-                pltpu.VMEM((n_tot, R8, _LANES), jnp.float32),
-                pltpu.SemaphoreType.DMA,
-            ],
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=100 * 1024 * 1024,
-            ),
-            interpret=_interpret(),
-        )(At)
-    x = jnp.transpose(out, (2, 0, 1))[:B, :, :n_rhs]
+        compiler_params=plgpu.CompilerParams(
+            num_warps=BLOCK_B // 32, num_stages=1),
+        interpret=interpret,
+        name="scalar_band_ldlt",
+    )(Ut, Rt)
+    x = jnp.transpose(xt, (2, 0, 1))[:B]
     return x if n_valid is None else x[:, :n_valid]
 
 
-def pallas_scalar_band_solve(U, b, *, n_valid: int | None = None):
+def pallas_scalar_band_solve(U, b, *, n_valid: int | None = None,
+                             interpret: bool = False):
     """Single-RHS form: ``U`` [B, n_pad, W1], ``b`` [B, n_pad] ->
-    x [B, n_pad] (f32)."""
+    x [B, n_pad]."""
     return pallas_scalar_band_solve_multi(
-        U, b[..., None], n_valid=n_valid
+        U, b[..., None], n_valid=n_valid, interpret=interpret
     )[..., 0]
 
 
-# ---------------------------------------------------------------------------
-# Streaming tier: n beyond the VMEM-resident kernel (mid-size meshes).
-# The factorization is streamed through VMEM in row chunks; the inter-chunk
-# state is tiny — the accumulated updates into the next W1a rows (forward)
-# and the first W1a solution rows of the following chunk (backward).
-# ---------------------------------------------------------------------------
+def sband_solver(interpret: bool = False):
+    """The batched scalar-band solve
+    ``solve(U [B, n_pad, W1], R [B, n_pad] or [B, n_pad, r]) -> x``,
+    computed in R's dtype.
 
-#: Rows beyond the VMEM tier stream in chunks; larger bands shrink the
-#: chunk so two pipeline buffers + scratch stay inside the VMEM budget.
-def _stream_chunk(W1a: int) -> int:
-    for c in (512, 256, 128, 64):
-        if (c + W1a) * W1a * _LANES * 4 * 5 <= _VMEM_BUDGET:
-            return c
-    return 32
-
-
-#: Streamed factored-band storage is O(B·n·W1a) in HBM; cap n at the
-#: plan's own limit (ops.scalar_band._MAX_N) — enforced there.
-def sband_fits_stream(n_pad: int, W1: int, n_rhs: int = 1) -> bool:
-    return _w1a(W1, n_rhs) <= 128
-
-
-def _make_fwd_stream_kernel(C: int, W1: int, W1a: int, n_rhs: int, R8: int):
-    def kernel(a_ref, fac_ref, S, K):
-        c = pl.program_id(1)
-
-        @pl.when(c == 0)
-        def _init():
-            # First chunk has no inbound updates; clear against NaN·0.
-            K[...] = jnp.zeros_like(K)
-
-        mk = _masks(W1, W1a, n_rhs, R8)
-        S[0:C] = a_ref[0]
-        S[0:W1a] = S[0:W1a] - K[...]
-        S[C:C + W1a] = jnp.zeros((W1a, W1a, _LANES), jnp.float32)
-
-        def fstep(i, carry):
-            _fwd_step(S, i, mk)
-            return carry
-
-        jax.lax.fori_loop(0, C, fstep, 0, unroll=False)
-        # Updates that land in the next chunk's head rows.
-        K[...] = jnp.zeros_like(K) - S[C:C + W1a]
-        fac_ref[0] = S[0:C]
-
-    return kernel
-
-
-def _make_bwd_stream_kernel(C: int, W1: int, W1a: int, n_rhs: int, R8: int):
-    def kernel(fac_ref, x_ref, X, Xc):
-        c = pl.program_id(1)
-
-        @pl.when(c == 0)
-        def _init():
-            # Last chunk (reverse order): no solution rows beyond it.
-            Xc[...] = jnp.zeros_like(Xc)
-
-        mk = _masks(W1, W1a, n_rhs, R8)
-        X[C:C + W1a] = Xc[...]
-
-        def bstep(j, carry):
-            _bwd_step(fac_ref.at[0], X, C - 1 - j, mk)
-            return carry
-
-        jax.lax.fori_loop(0, C, bstep, 0, unroll=False)
-        x_ref[0] = X[0:C]
-        Xc[...] = X[0:W1a]
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("n_valid",))
-def pallas_scalar_band_solve_stream_multi(U, R, *,
-                                          n_valid: int | None = None):
-    """Streaming batched multi-RHS scalar-band solve for n past the VMEM
-    tier.  Same contract as :func:`pallas_scalar_band_solve_multi`.
+    The kernel is chosen where the program is lowered, not where it is
+    traced: a program lowered for a CUDA device runs the kernel, any other
+    (the host CPU, including a solve placed there with
+    ``jax.default_device`` on a GPU machine) runs the lax.scan recurrence.
+    ``interpret=True`` runs the kernel in the Pallas interpreter on every
+    platform (tests).
     """
-    B, n_pad, W1 = U.shape
-    n_rhs = R.shape[-1]
-    if n_pad % 8:
-        raise ValueError(f"n_pad must be a sublane multiple, got {n_pad}")
-    W1a = _w1a(W1, n_rhs)
-    R8 = _r8(n_rhs)
-    if not sband_fits_stream(n_pad, W1, n_rhs):
-        raise ValueError(
-            f"(W1={W1}, n_rhs={n_rhs}) exceeds the streaming scalar-band "
-            "width cap; check sband_fits_stream first"
-        )
-    C = _stream_chunk(W1a)
-    n_c = -(-n_pad // C) * C
-    U = U.astype(jnp.float32)
-    R = R.astype(jnp.float32)
+    from nodal_tpu.ops.scalar_band import scalar_band_solve_scan
 
-    # Augmented rows [d, u, rhs..., 0-pad]; unit-diagonal pad rows up to a
-    # chunk multiple (they eliminate to no-ops like the VMEM tier's tail).
-    A = jnp.concatenate(
-        [U, R, jnp.zeros((B, n_pad, W1a - W1 - n_rhs), jnp.float32)],
-        axis=2,
-    )
-    unit = jnp.zeros((W1a,), jnp.float32).at[0].set(1.0)
-    if n_c != n_pad:
-        A = jnp.concatenate(
-            [A, jnp.broadcast_to(unit, (B, n_c - n_pad, W1a))], axis=1
-        )
-    Bp = -(-B // _LANES) * _LANES
-    if Bp != B:
-        A = jnp.concatenate(
-            [A, jnp.broadcast_to(unit, (Bp - B, n_c, W1a))], axis=0
-        )
-    tiles = Bp // _LANES
-    chunks = n_c // C
-    At = jnp.transpose(
-        A.reshape(tiles, _LANES, n_c, W1a), (0, 2, 3, 1)
-    )
+    def kernel(U, R):
+        if R.ndim == U.ndim - 1:
+            return pallas_scalar_band_solve(U, R, interpret=interpret)
+        return pallas_scalar_band_solve_multi(U, R, interpret=interpret)
 
-    vm = 100 * 1024 * 1024
-    fwd_map = lambda t, c: (t, c, 0, 0)  # noqa: E731
-    rev_map = lambda t, c: (t, chunks - 1 - c, 0, 0)  # noqa: E731
+    def solve(U, R):
+        U = U.astype(R.dtype)
+        if interpret:
+            return kernel(U, R)
+        return jax.lax.platform_dependent(
+            U, R, cuda=kernel, default=scalar_band_solve_scan)
 
-    def spec(index_map):
-        return pl.BlockSpec((1, C, W1a, _LANES), index_map,
-                            memory_space=pltpu.VMEM)
-
-    with _x32_scope():
-        fac = pl.pallas_call(
-            _make_fwd_stream_kernel(C, W1, W1a, n_rhs, R8),
-            grid=(tiles, chunks),
-            out_shape=jax.ShapeDtypeStruct((tiles, n_c, W1a, _LANES),
-                                           jnp.float32),
-            in_specs=[spec(fwd_map)],
-            out_specs=spec(fwd_map),
-            scratch_shapes=[
-                pltpu.VMEM((C + W1a, W1a, _LANES), jnp.float32),
-                pltpu.VMEM((W1a, W1a, _LANES), jnp.float32),
-            ],
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("parallel", "arbitrary"),
-                vmem_limit_bytes=vm,
-            ),
-            interpret=_interpret(),
-        )(At)
-
-        def xspec(index_map):
-            return pl.BlockSpec((1, C, R8, _LANES), index_map,
-                                memory_space=pltpu.VMEM)
-
-        out = pl.pallas_call(
-            _make_bwd_stream_kernel(C, W1, W1a, n_rhs, R8),
-            grid=(tiles, chunks),
-            out_shape=jax.ShapeDtypeStruct((tiles, n_c, R8, _LANES),
-                                           jnp.float32),
-            in_specs=[spec(rev_map)],
-            out_specs=xspec(rev_map),
-            scratch_shapes=[
-                pltpu.VMEM((C + W1a, R8, _LANES), jnp.float32),
-                pltpu.VMEM((W1a, R8, _LANES), jnp.float32),
-            ],
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("parallel", "arbitrary"),
-                vmem_limit_bytes=vm,
-            ),
-            interpret=_interpret(),
-        )(fac)
-
-    # [tiles, n_c, R8, 128] -> [B, n_pad, n_rhs]
-    x = jnp.transpose(out, (0, 3, 1, 2)).reshape(Bp, n_c, R8)
-    x = x[:B, :n_pad, :n_rhs]
-    return x if n_valid is None else x[:, :n_valid]
-
-
-def pallas_scalar_band_solve_stream(U, b, *, n_valid: int | None = None):
-    """Single-RHS streaming form: ``U`` [B, n_pad, W1], ``b`` [B, n_pad]
-    -> x [B, n_pad] (f32)."""
-    return pallas_scalar_band_solve_stream_multi(
-        U, b[..., None], n_valid=n_valid
-    )[..., 0]
+    return solve

@@ -1,17 +1,15 @@
 """Scalar banded LDLᵀ: plan, assembly, and run-anywhere solver.
 
-The block-Thomas tier (ops/band.py, ops/pallas_band.py) pads every band to
-kb=128 blocks because the MXU wants 128×128 matmuls — an O(n·kb²) cost even
-when the true half-bandwidth is tiny.  After RCM a 2-D circuit mesh has
-half-bandwidth w ≈ its smaller grid dimension (w=26 for the 25×40 bench
-mesh), so the block tier runs ~640 MFLOP/sample where the *scalar* banded
-factorization needs n·w² ≈ 1.4 MFLOP — a ~450× algorithmic gap that no
-amount of MXU efficiency recovers.
+The block-Thomas tier (ops/band.py) pads every band to kb-wide dense
+blocks — an O(n·kb²) cost even when the true half-bandwidth is tiny.  After
+RCM a 2-D circuit mesh has half-bandwidth w ≈ its smaller grid dimension
+(w=26 for the 25×40 bench mesh), so the block tier runs hundreds of
+MFLOP/sample where the *scalar* banded factorization needs n·w² ≈ 1.4
+MFLOP.
 
 This module holds the topology plan and the portable implementation of the
-scalar path; ops/pallas_scalar_band.py holds the TPU kernel that runs it
-with the batch in the 128-lane dimension (VPU work — the flop count is far
-too small to feed the MXU, and that is the point).
+scalar path; ops/pallas_scalar_band.py holds the GPU kernel that runs it
+with one system per thread.
 
 Math: the system is the RCM-reordered grounded resistor Laplacian —
 symmetric positive definite — so the no-pivot banded LDLᵀ
@@ -42,22 +40,29 @@ import jax.numpy as jnp
 from nodal_tpu.models.stamps import StampTensors, stamp_values
 from nodal_tpu.ops.band import rcm_order
 
-#: Past this half-bandwidth the per-step sublane work (O(w) vector ops of
-#: O(w) sublanes each) catches up with the block-Thomas MXU tier — the
-#: scalar tier's cost scales ~w² while the kb=128 block tier is flat in w,
-#: and the measured w=26 rates (94k/s scalar vs 20k/s block at n=1000,
-#: B=1024 on v5e) put the crossover near w ≈ 55.  Wider bands keep the
-#: block path.
-MAX_W = 56
+#: Widest half-bandwidth the scalar-band tier serves, by the dtype its
+#: solve runs in.  The GPU kernel carries each system's w(w+1)/2 pending
+#: updates (plus w per RHS column) in registers, spilling to local memory
+#: as w grows, so its time per row grows faster than w², while the
+#: block-Thomas tier's stays flat up to kb=64; f64 carries twice the bytes.
+#: Measured end to end on an H100 at B=1024 (PERF.md): in f32 the kernel
+#: wins 1.17× at w=41 and loses 1.09× at w=46; in f64 it wins 1.16× at
+#: w=36 and loses 1.3× at w=41.  Wider bands take the block-Thomas tier.
+MAX_W = 41
+MAX_W_F64 = 36
 
-#: Plans are only built below this size.  The streaming kernel
-#: (ops/pallas_scalar_band.pallas_scalar_band_solve_stream) itself has no
-#: n limit, but its factored-band storage is O(B·n·W1a) in HBM — at the
-#: production batch size B=1024 and W1a=64 that is ~4.3 GB per buffer at
-#: n=16384, a sizeable slice of a 16 GB chip once the augmented input and
-#: solution buffers join it.  Larger narrow-band systems fall to the
-#: block-Thomas streaming tier, which factorizes in place.
-_MAX_N = 16384
+
+def max_w(dtype) -> int:
+    """Widest band the scalar-band tier takes for a solve in ``dtype``."""
+    return MAX_W if jnp.dtype(dtype).itemsize <= 4 else MAX_W_F64
+
+
+def carry_fits(w: int, n_rhs: int, dtype) -> bool:
+    """Whether a w-wide band with ``n_rhs`` RHS columns carries no more per
+    system than the widest single-RHS band the tier takes in ``dtype`` (the
+    multi-RHS Schur tier checks this)."""
+    m = max_w(dtype)
+    return w * (w + 1) // 2 + w * n_rhs <= m * (m + 1) // 2 + m
 
 
 @dataclass
@@ -72,7 +77,7 @@ class ScalarBandPlan:
     n: int
     w: int             # half-bandwidth after reordering
     W1: int            # stored slots per row = w + 1 (diagonal first)
-    n_pad: int         # n rounded up to a sublane multiple (8)
+    n_pad: int         # n rounded up to a multiple of 8
     order: np.ndarray  # [n] order[new] = old
     rank: np.ndarray   # [n] rank[old] = new
     sel: np.ndarray    # stamp entries in the upper band (row' <= col')
@@ -170,7 +175,8 @@ def make_scalar_band_plan(
     stamps: StampTensors, n_limit: int | None = None, max_w: int = MAX_W,
 ) -> ScalarBandPlan | None:
     """Scalar-band plan for the leading ``n_limit`` unknowns, or None when
-    the system is not symmetric-banded under ``max_w``.
+    the system is not symmetric-banded under ``max_w`` (the widest band the
+    tier takes in any dtype; callers check :func:`max_w` for theirs).
 
     Requires a *symmetric* block.  Only resistor stamps write node-node
     entries (models/stamps.py), so the node block (``n_limit =
@@ -182,7 +188,7 @@ def make_scalar_band_plan(
     cheap belt-and-braces check.
     """
     n = stamps.n if n_limit is None else n_limit
-    if n == 0 or n > _MAX_N:
+    if n == 0:
         return None
     if n > stamps.n_kcl:  # includes branch rows: not symmetric
         return None
@@ -293,10 +299,9 @@ def scalar_band_solve_scan(U, b):
     """Run-anywhere banded LDLᵀ solve: ``U`` [..., n_pad, W1] upper band,
     ``b`` [..., n_pad] (or [..., n_pad, r] multi-RHS) -> x of b's shape.
 
-    lax.scan over rows; any float dtype (this is also the f64 oracle /
-    refinement path).  The TPU batch kernel
-    (ops/pallas_scalar_band.pallas_scalar_band_solve) computes the
-    identical recurrence with the batch in the lane dimension.
+    lax.scan over rows; any float dtype (the CPU path and the test
+    oracle).  The GPU kernel (ops/pallas_scalar_band) computes the same
+    recurrence with one system per thread.
     """
     vector_rhs = b.ndim == U.ndim - 1
     if vector_rhs:

@@ -8,12 +8,12 @@ configs[3]).  A dense factorization then does ~n²/5 times more work than
 necessary; SPICE-class simulators always exploit such structure, and so do
 we.
 
-PCR is the TPU-shaped tridiagonal algorithm: log2(n) levels of fully
+PCR is the data-parallel tridiagonal algorithm: log2(n) levels of fully
 vectorized elementwise recurrences over [B, n] arrays, applied to *every*
 row each level so the system fully decouples — no sequential
 back-substitution at all (the classical Thomas algorithm would serialize n
-tiny steps).  O(n log n) work, but every op is a fused VPU map over the
-batch.  Stable for the diagonally dominant systems resistive networks
+tiny steps).  O(n log n) work, but every op is a fused elementwise map
+over the batch that XLA fuses level by level.  Stable for the diagonally dominant systems resistive networks
 produce.
 """
 

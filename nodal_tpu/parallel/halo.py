@@ -3,13 +3,12 @@
 The hand-scheduled counterpart to the GSPMD path
 (:mod:`nodal_tpu.parallel.sharded`).  The grid's row (node) axis is sharded
 over the ``sp`` mesh axis; each step of the 5-point stencil exchanges one
-boundary row with each neighbor via ``lax.ppermute`` (riding ICI on real
-hardware), and the CG dot products psum over ``sp``.  Everything else is
-local VPU work, so the communication volume per iteration is
+boundary row with each neighbor via ``lax.ppermute`` (NCCL over NVLink
+on GPUs), and the CG dot products psum over ``sp``.  Everything else is
+local elementwise work, so the communication volume per iteration is
 2·W elements + 3 scalar all-reduces — the textbook halo-exchange CG.
 
-Useful when the GSPMD partitioner's choices need overriding, and as the
-foundation for the Pallas ring-DMA variant.
+Useful when the GSPMD partitioner's choices need overriding.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Device-mesh helpers.
 
 The reference is strictly single-process (SURVEY.md §2.5); scaling here is
-expressed the TPU-native way — ``jax.sharding.Mesh`` + sharding annotations,
+expressed the JAX way — ``jax.sharding.Mesh`` + sharding annotations,
 with XLA emitting the collectives — never hand-written communication
 backends.
 

@@ -1,12 +1,11 @@
 """Multi-host initialization (SURVEY.md §2.5: the reference has no
 distributed story; ours is jax.distributed + global meshes).
 
-Single-host multi-chip needs nothing from this module — ``make_mesh`` over
-``jax.devices()`` covers it.  Multi-host (pod slices) requires every
-process to call :func:`initialize` before any jax computation, then build
-meshes over the *global* device list; GSPMD then emits ICI collectives
-within a slice and DCN collectives across hosts, with no user-visible
-difference in the solver code.
+Single-host multi-device needs nothing from this module — ``make_mesh``
+over ``jax.devices()`` covers it.  Multi-host runs require every process
+to call :func:`initialize` before any jax computation, then build meshes
+over the *global* device list; GSPMD then emits collectives within a host
+and across hosts, with no user-visible difference in the solver code.
 """
 
 from __future__ import annotations
@@ -21,9 +20,10 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """Initialize jax.distributed for a multi-host run.
 
-    With no arguments, defers to cluster auto-detection (TPU pod
-    environments populate the coordination variables).  Call exactly once
-    per process, before creating arrays.
+    With no arguments, defers to cluster auto-detection (which works only
+    where the cluster environment publishes the coordination variables;
+    elsewhere pass all three).  Call exactly once per process, before
+    creating arrays.
     """
     jax.distributed.initialize(
         coordinator_address=coordinator_address,

@@ -1,11 +1,11 @@
-"""GSPMD-sharded solvers: annotate shardings, let XLA place collectives.
+"""Sharded solvers over a device mesh.
 
-This is the primary multi-chip path (the scaling-book recipe): the batched
-dense solve shards its batch axis across the whole mesh (pure data
-parallelism — zero communication), and the grid solve shards the *node axis*
-(grid rows) so one huge system spans chips; XLA's SPMD partitioner turns the
-stencil's pad/slice ops into halo exchanges and the CG dot products into
-``all-reduce``s over ICI automatically.
+The batched solve shards its batch axis across the whole mesh (pure data
+parallelism — zero communication, shard_map over BatchedSolver's tier), and
+the GSPMD grid solve shards the *node axis* (grid rows) so one huge system
+spans chips; XLA's SPMD partitioner turns the stencil's pad/slice ops into
+halo exchanges and the CG dot products into ``all-reduce``s over the device
+interconnect automatically.
 
 For the explicit hand-written collective variant (ppermute halo exchange
 inside shard_map), see :mod:`nodal_tpu.parallel.halo`.
@@ -18,32 +18,24 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from nodal_tpu.models.stamps import StampTensors
-from nodal_tpu.ops.assemble import assemble_dense
-
 from nodal_tpu.ops.grid import grid_solve
 
 
 def make_sharded_batch_solver(
     stamps: StampTensors, mesh: Mesh, *, dtype=jnp.float32,
-    refine: bool = False, pallas: str = "auto", method: str = "auto",
+    refine: bool = False, interpret: bool = False,
 ):
     """Compile a batch solver whose batch axis is sharded over every mesh
     axis (dp × sp treated as one data-parallel pool).
 
-    Structure-aware like :class:`nodal_tpu.batch.BatchedSolver`.  The
-    Pallas mega-kernels (PCR tridiagonal, VMEM/streaming block-Thomas,
-    VMEM blocked LU) are opaque custom calls GSPMD cannot partition, so
-    they are wrapped per-device with ``shard_map`` over the batch axis —
-    each chip runs the single-chip kernel on its local shard, with zero
-    communication (round-2 review item #4: multi-chip batch previously
-    forfeited the fast kernels and fell back to XLA-level solvers).
-
-    ``pallas``: ``"auto"`` uses the kernels when the structure supports
-    them and the backend is TPU (elsewhere they run in interpret mode —
-    correct but slow, so auto avoids them); ``"on"`` forces the shard_map
-    +kernel path (tests/dryruns on the virtual CPU mesh); ``"off"``
-    restores the XLA-level solvers.  ``refine=True`` uses the shared
-    dense core's exact-COO f64 defect correction (batch.make_dense_core).
+    The tiers are :class:`nodal_tpu.batch.BatchedSolver`'s own — the same
+    structure-based choice, with the scalar-band kernel where the program
+    is lowered for GPUs.  Its per-batch solve is wrapped in ``shard_map``
+    over the batch axis, so each device solves its local shard with zero
+    communication (a pallas_call is an opaque custom call GSPMD cannot
+    partition).  ``refine`` is BatchedSolver's (``True``: f64 defect
+    correction); ``interpret=True`` runs the kernel in the Pallas
+    interpreter (tests on virtual CPU devices).
 
     The returned solver is differentiable with ``jax.grad`` — the adjoint
     solve runs over the same sharded kernels (see batch.make_adjoint_solver).
@@ -53,276 +45,21 @@ def make_sharded_batch_solver(
     """
     from jax import shard_map
 
-    in_sharding = NamedSharding(mesh, P(("dp", "sp"), None))
-    out_sharding = NamedSharding(mesh, P(("dp", "sp"), None))
+    from nodal_tpu.batch import BatchedSolver, make_adjoint_solver
 
-    from nodal_tpu.ops import block_lu, tridiag
-    from nodal_tpu.ops.assemble import assemble_tridiag, bandwidth
-    from nodal_tpu.ops.band import band_plan, band_thomas_solve
-
-    resistive = stamps.n == stamps.n_kcl
-    plan = band_plan(stamps) if (resistive and not refine) else None
-    f32 = jnp.dtype(dtype) == jnp.float32
-    # Key on the MESH's device platform, not jax.default_backend(): a
-    # virtual-CPU dryrun mesh can coexist with an initialized remote-TPU
-    # default backend (the driver may compile-check entry() first), and
-    # kernels picked for the session default would lower non-interpret
-    # pallas calls onto the CPU mesh devices.
-    mesh_platform = next(iter(mesh.devices.flat)).platform
-    use_pallas = pallas == "on" or (
-        pallas == "auto" and f32 and not refine and mesh_platform == "tpu"
-    )
-
-    local_pallas = None
-    if use_pallas and f32 and not refine:
-        local_pallas = _pallas_local_batch_solver(stamps, plan, dtype,
-                                                  method=method)
-
-    if local_pallas is not None:
-        local_fwd, local_t = local_pallas
-        # Per-device Pallas kernel over the local batch shard.  shard_map
-        # (not GSPMD) because pallas_call lowers to an opaque custom call
-        # the SPMD partitioner cannot split; the batch axis is embarrassingly
-        # parallel so the wrapper introduces no collectives at all.
-        from nodal_tpu.ops.pallas_block_lu import force_interpret
-
-        # Pin interpret mode to the MESH's platform in both directions: a
-        # non-TPU mesh (pallas="on" dryruns/tests) must lower in interpret
-        # mode even when an initialized TPU backend is the session default,
-        # and a TPU mesh must lower real Mosaic kernels even when the
-        # session default backend is CPU (the mirror scenario) — without
-        # the False pin, _interpret() would fall back to
-        # jax.default_backend() and silently run interpret-mode kernels on
-        # the TPU devices, defeating pallas="on"/"auto".  The scope
-        # executes at trace time.
-        interp = mesh_platform != "tpu"
-
-        def local_call_fwd(pb):
-            with force_interpret(interp):
-                return local_fwd(pb)
-
-        def local_call_t(pb, rhs):
-            with force_interpret(interp):
-                return local_t(pb, rhs)
-
-        spec = P(("dp", "sp"), None)
-        solve_batch = shard_map(
-            local_call_fwd, mesh=mesh,
-            in_specs=spec, out_specs=spec, check_vma=False,
-        )
-        # Adjoint pass: the same per-device kernels against the sharded
-        # cotangent (resistive tiers are symmetric; the Schur tier swaps
-        # its border blocks — see batch._make_schur_band_solver).
-        solve_rhs_t = shard_map(
-            local_call_t, mesh=mesh,
-            in_specs=(spec, spec), out_specs=spec, check_vma=False,
-        )
-    elif resistive and not refine and bandwidth(stamps) <= 1:
-
-        def solve_batch(pb, rhs=None):
-            dl, d, du, b = jax.vmap(
-                lambda p: assemble_tridiag(stamps, p, dtype=dtype)
-            )(pb)
-            if rhs is not None:
-                b = rhs.astype(b.dtype)
-            return tridiag.tridiag_solve(dl, d, du, b)
-
-        solve_rhs_t = solve_batch  # symmetric
-
-    elif plan is not None and plan.nb >= 2:
-
-        def solve_batch(pb, rhs=None):
-            W, b = jax.vmap(
-                lambda p: plan.assemble(stamps, p, dtype=dtype)
-            )(pb)
-            if rhs is not None:
-                b = plan.rhs_to_band(rhs, W.dtype)
-            return plan.unpermute(band_thomas_solve(W, b))
-
-        solve_rhs_t = solve_batch  # symmetric
-
-    elif resistive and not refine:
-
-        def solve_batch(pb, rhs=None):
-            G, b = jax.vmap(
-                lambda p: assemble_dense(stamps, p, dtype=dtype)
-            )(pb)
-            if rhs is not None:
-                b = rhs.astype(b.dtype)
-            return block_lu.blocked_solve(G, b)
-
-        solve_rhs_t = solve_batch  # symmetric
-
-    else:
-        from nodal_tpu.batch import make_dense_core
-
-        dense_core = make_dense_core(stamps, dtype, refine)
-        solve_batch = dense_core
-        solve_rhs_t = lambda pb, rhs: dense_core(  # noqa: E731
-            pb, rhs, transpose=True)
-
-    from nodal_tpu.batch import make_adjoint_solver
-
-    solve = make_adjoint_solver(stamps, solve_batch, solve_rhs_t)
-    return jax.jit(
-        solve, in_shardings=in_sharding, out_shardings=out_sharding
-    )
-
-
-def _pallas_local_batch_solver(stamps: StampTensors, plan, dtype,
-                               method: str = "auto"):
-    """Per-device (shard-local) batch solve using the single-chip Pallas
-    tiers, mirroring BatchedSolver's structure dispatch.  Returns a
-    ``(forward, transpose)`` pair of locals — identical for the symmetric
-    resistive tiers, border-swapped for the Schur tier — or None when no
-    Pallas tier covers this circuit (caller falls back to XLA-level).
-    ``method`` pins one tier (auto picks in BatchedSolver's order)."""
-    from nodal_tpu.ops.assemble import assemble_tridiag, bandwidth
-    from nodal_tpu.ops.pallas_band import (band_fits_stream, band_fits_vmem,
-                                           pallas_band_solve,
-                                           pallas_band_solve_stream)
-    from nodal_tpu.ops.pallas_block_lu import (_pad, lu_fits_vmem,
-                                               pallas_lu_solve)
-    from nodal_tpu.ops.pallas_tridiag import pcr_fits_vmem, pcr_solve_padded
-
-    resistive = stamps.n == stamps.n_kcl
-    if not resistive:
-        return _pallas_local_schur_solver(stamps, dtype, method)
-
-    if method in ("auto", "tridiag") and bandwidth(stamps) <= 1 \
-            and pcr_fits_vmem(stamps.n):
-
-        def local(pb, rhs=None):
-            dl, d, du, b = jax.vmap(
-                lambda p: assemble_tridiag(stamps, p, dtype=dtype)
-            )(pb)
-            if rhs is not None:
-                b = rhs.astype(b.dtype)
-            return pcr_solve_padded(dl, d, du, b)
-
-        return local, local
-
-    from nodal_tpu.ops.pallas_scalar_band import (
-        pallas_scalar_band_solve,
-        pallas_scalar_band_solve_stream,
-        sband_fits_stream,
-        sband_fits_vmem,
-    )
-    from nodal_tpu.ops.scalar_band import sband_plan
-
-    splan = sband_plan(stamps)
-    if method in ("auto", "sband") and splan is not None \
-            and (sband_fits_vmem(splan.n_pad, splan.W1)
-                 or sband_fits_stream(splan.n_pad, splan.W1)) \
-            and bandwidth(stamps) > 1:
-        # Narrow band: the scalar LDLᵀ batch-in-lanes kernel (same
-        # structure preference as BatchedSolver).
-        core = (pallas_scalar_band_solve
-                if sband_fits_vmem(splan.n_pad, splan.W1)
-                else pallas_scalar_band_solve_stream)
-
-        def local(pb, rhs=None):
-            U, b = jax.vmap(
-                lambda p: splan.assemble(stamps, p, dtype=dtype)
-            )(pb)
-            if rhs is not None:
-                b = splan.rhs_to_band(rhs, U.dtype)
-            return splan.unpermute(core(U, b))
-
-        return local, local
-
-    if method in ("auto", "band") and plan is not None \
-            and plan.nb >= 2 and (plan.kb == 128 or plan.n > 1024):
-        if band_fits_vmem(plan.n_pad, plan.kb):
-            core = pallas_band_solve
-        elif band_fits_stream(plan.n_pad, plan.kb):
-            core = pallas_band_solve_stream
-        else:
-            return None
-
-        def local(pb, rhs=None):
-            W, b = jax.vmap(
-                lambda p: plan.assemble(stamps, p, dtype=dtype)
-            )(pb)
-            if rhs is not None:
-                b = plan.rhs_to_band(rhs, W.dtype)
-            return plan.unpermute(core(W, b))
-
-        return local, local
-
-    if method in ("auto", "block") and lu_fits_vmem(stamps.n):
-        n_pad = _pad(stamps.n)
-
-        def local(pb, rhs=None):
-            G, b = jax.vmap(
-                lambda p: assemble_dense(stamps, p, dtype=dtype,
-                                         pad_to=n_pad)
-            )(pb)
-            if rhs is not None:
-                b = jnp.pad(rhs.astype(G.dtype),
-                            [(0, 0), (0, n_pad - stamps.n)])
-            return pallas_lu_solve(G, b, n_valid=stamps.n)
-
-        return local, local
-
-    return None
-
-
-def _pallas_local_schur_solver(stamps: StampTensors, dtype,
-                               method: str = "auto"):
-    """Shard-local Schur (branch-equation) tiers — round-3 review item #3:
-    multi-chip sweeps of non-resistive circuits previously forfeited the
-    Schur fast tiers and fell to the dense core (per-sample [n, n] pivoted
-    LU).  Mirrors BatchedSolver's 'schur' dispatch: banded multi-RHS
-    kernels solve A⁻¹[B | b] on the SPD node block, a small pivoted solve
-    handles the border; the transpose local swaps the border blocks
-    (same cost) for the adjoint pass.  Returns ``(forward, transpose)``
-    or None (dense fallback)."""
-    from nodal_tpu.batch import (_make_schur_band_solver,
-                                 _schur_band_assembler, _schur_supported)
-    from nodal_tpu.ops.band import node_band_plan
-    from nodal_tpu.ops.pallas_band import (
-        band_fits_stream,
-        band_fits_vmem,
-        pallas_band_solve_multi,
-        pallas_band_solve_multi_stream,
-    )
-    from nodal_tpu.ops.pallas_block_lu import _K
-    from nodal_tpu.ops.pallas_scalar_band import (
-        pallas_scalar_band_solve_multi,
-        pallas_scalar_band_solve_stream_multi,
-        sband_fits_stream,
-        sband_fits_vmem,
-    )
-    from nodal_tpu.ops.scalar_band import node_sband_plan
-
-    if method not in ("auto", "schur"):
-        return None
-    nk = stamps.n_kcl
-    kbe = stamps.n - nk
-    if kbe >= _K or nk < 256 or not _schur_supported(stamps):
-        return None
-
-    nsplan = node_sband_plan(stamps)
-    if nsplan is not None and (
-            sband_fits_vmem(nsplan.n_pad, nsplan.W1, kbe + 1)
-            or sband_fits_stream(nsplan.n_pad, nsplan.W1, kbe + 1)):
-        multi = (pallas_scalar_band_solve_multi
-                 if sband_fits_vmem(nsplan.n_pad, nsplan.W1, kbe + 1)
-                 else pallas_scalar_band_solve_stream_multi)
-        assemble = _schur_band_assembler(stamps, jnp.float32, nsplan)
-        return _make_schur_band_solver(assemble, multi, nsplan, nk, kbe)
-
-    nplan = node_band_plan(stamps)
-    if nplan is not None and nplan.nb >= 2 \
-            and (nplan.kb == 128 or nplan.n > 1024) \
-            and band_fits_stream(nplan.n_pad, nplan.kb):
-        multi = (pallas_band_solve_multi
-                 if band_fits_vmem(nplan.n_pad, nplan.kb)
-                 else pallas_band_solve_multi_stream)
-        assemble = _schur_band_assembler(stamps, jnp.float32, nplan)
-        return _make_schur_band_solver(assemble, multi, nplan, nk, kbe)
-    return None
+    local_fwd, local_t = BatchedSolver(
+        stamps, dtype=dtype, refine=refine, interpret=interpret).solve_pair
+    spec = P(("dp", "sp"), None)
+    solve_batch = shard_map(local_fwd, mesh=mesh, in_specs=spec,
+                            out_specs=spec, check_vma=False)
+    # Adjoint pass: the same per-device solve against the sharded cotangent
+    # (resistive tiers are symmetric; the Schur tiers swap their border
+    # blocks — see batch._make_schur_band_solver).
+    solve_rhs_t = shard_map(local_t, mesh=mesh, in_specs=(spec, spec),
+                            out_specs=spec, check_vma=False)
+    sharding = NamedSharding(mesh, spec)
+    return jax.jit(make_adjoint_solver(stamps, solve_batch, solve_rhs_t),
+                   in_shardings=sharding, out_shardings=sharding)
 
 
 def make_sharded_grid_solver(
@@ -334,29 +71,25 @@ def make_sharded_grid_solver(
     tol: float = 1e-6,
     maxiter: int | None = None,
     mg: bool = True,
-    mg_backend: str = "auto",
 ):
     """Compile a batched grid solver with 2D sharding: the batch of systems
     over ``dp``, each system's row (node) axis over ``sp``.
 
-    Returns ``b_batch [B, H, W] -> (x_batch [B, H, W], residuals [B])``.
+    Returns ``b_batch [B, H, W] -> (x_batch [B, H, W], residuals [B],
+    iterations [B])``, the same triple as the halo solver
+    (:func:`nodal_tpu.parallel.halo.make_halo_grid_solver`).
     """
-    if mg_backend == "auto":
-        # Always the XLA cycle here: GSPMD partitions its pad/slice stencils
-        # automatically, whereas Pallas kernels do not shard — and the mesh
-        # may be virtual CPU devices while an accelerator is the session
-        # default.
-        mg_backend = "xla"
     in_sharding = NamedSharding(mesh, P("dp", "sp", None))
     out_sharding = (
         NamedSharding(mesh, P("dp", "sp", None)),
+        NamedSharding(mesh, P("dp")),
         NamedSharding(mesh, P("dp")),
     )
 
     def single(b):
         x, info = grid_solve(h, w, b, dtype=dtype, tol=tol, maxiter=maxiter,
-                             mg=mg, mg_backend=mg_backend)
-        return x, info.residual
+                             mg=mg)
+        return x, info.residual, info.iterations
 
     return jax.jit(
         jax.vmap(single), in_shardings=(in_sharding,), out_shardings=out_sharding

@@ -26,7 +26,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--dtype",
         choices=("f32", "f64"),
         default="f64",
-        help="numeric precision (default f64; f32 is the fast TPU path)",
+        help="numeric precision (default f64; f32 is the fast path)",
     )
     parser.add_argument(
         "--stats", action="store_true", help="print timing statistics to stderr"
@@ -96,6 +96,8 @@ def _try_native(args) -> bool:
     from nodal_tpu.ops.sparse import solve_sparse_system
 
     x, info = solve_sparse_system(stamps, stamps.params)
+    device = (next(iter(x.devices())).platform if hasattr(x, "devices")
+              else "host")
     x = np.asarray(x, dtype=np.float64)
     if not bool(info.converged) or not np.all(np.isfinite(x)):
         # Non-convergence here does NOT imply a singular system (Krylov can
@@ -115,6 +117,7 @@ def _try_native(args) -> bool:
         print(
             f"parse: {t1 - t0:.4f}s  compile+solve: {t2 - t1:.4f}s  "
             f"method: native+{getattr(info, 'method', '') or 'krylov'}  "
+            f"device: {device}  "
             f"residual: {float(info.residual):.2e}  "
             f"iterations: {int(info.iterations)}",
             file=sys.stderr,
@@ -189,7 +192,8 @@ def main(argv=None) -> None:
         if solution.stats:
             s = solution.stats
             detail = (
-                f"  method: {s['method']}  residual: {s['residual']:.2e}"
+                f"  method: {s['method']}  device: {s['device']}"
+                f"  residual: {s['residual']:.2e}"
                 + (f"  iterations: {s['iterations']}" if "iterations" in s else "")
             )
         print(

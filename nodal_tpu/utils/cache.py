@@ -8,17 +8,18 @@ backend) therefore keys exactly on (topology, dtype, method, backend) with
 no hand-rolled layer on top.  This module just turns it on at a stable
 location.
 
-Why it matters: a fresh process pays full lowering + compile for every
-netlist (NOTES.md: ~144 s cold for the 1M-grid multigrid program on the
-remote TPU; seconds for CPU LU programs).  With the cache enabled, the
-second `nodal-solver` invocation on the same topology skips compilation
-entirely — visible in ``--stats`` as compile+solve collapsing to the pure
-solve time.
+With the cache enabled, the second `nodal-solver` invocation on the same
+topology skips compilation entirely — visible in ``--stats`` as
+compile+solve collapsing to the pure solve time.
 
-Environment knobs:
+Location:
 
-* ``NODAL_TPU_CACHE_DIR`` — cache location (default ``~/.cache/nodal_tpu/xla``)
-* ``NODAL_TPU_NO_CACHE=1`` — disable entirely
+* ``JAX_COMPILATION_CACHE_DIR`` when set — JAX reads it itself, and this
+  module sets no other directory;
+* otherwise ``<checkout>/.jax_cache`` (the directory that holds the
+  ``nodal_tpu`` package; listed in ``.gitignore``).
+
+``NODAL_TPU_NO_CACHE=1`` disables the cache entirely.
 """
 
 from __future__ import annotations
@@ -28,36 +29,13 @@ import os
 
 logger = logging.getLogger(__name__)
 
-_DEFAULT_DIR = os.path.join(
-    os.path.expanduser("~"), ".cache", "nodal_tpu", "xla"
+#: ``<checkout>/.jax_cache``: a fixed path, since the path is part of the
+#: cache's key for every program it holds.
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))),
+    ".jax_cache",
 )
-
-
-def _host_fingerprint() -> str:
-    """Short stable hash of this host's CPU feature set.
-
-    XLA:CPU persists AOT-compiled executables whose machine features are
-    baked in at compile time; replaying them on a CPU with a different
-    feature set logs "could lead to execution errors such as SIGILL" per
-    load (round-2 review "What's weak" #3 — the driver bench tail was full
-    of them).  Salting the cache directory per host feature-set keeps each
-    machine's cache self-consistent while still sharing TPU executables
-    across runs on the same host.
-    """
-    import hashlib
-    import platform
-
-    feats = ""
-    try:
-        with open("/proc/cpuinfo") as fh:
-            for line in fh:
-                if line.startswith(("flags", "Features")):
-                    feats = " ".join(sorted(line.split(":", 1)[1].split()))
-                    break
-    except OSError:  # pragma: no cover - non-Linux hosts
-        pass
-    raw = f"{platform.machine()}|{feats}"
-    return hashlib.sha1(raw.encode()).hexdigest()[:12]
 
 #: Programs cheaper than this to compile are not persisted (litter control).
 _MIN_COMPILE_SECS = 0.2
@@ -71,14 +49,12 @@ def _exclude_cpu_backend() -> None:
     (+prefer-no-scatter/+prefer-no-gather) that can never appear in
     /proc/cpuinfo, so *every* cache load logs two "could lead to execution
     errors such as SIGILL" errors, even replaying on the very host that
-    compiled it (verified here; dir-salting and
-    jax_persistent_cache_enable_xla_caches=none don't help because the
-    feature record lives in the executable, not a sub-cache).  CPU
+    compiled it (the feature record lives in the executable).  CPU
     compiles are sub-second for the programs this framework routes to the
-    host anyway — only the remote-TPU executables (measured 107.8 s cold →
-    3.0 s warm, NOTES.md) are worth persisting.  jax has no per-backend
-    knob, so wrap the one predicate its compiler consults
-    (jax/_src/compiler.py `_get_cache_key` → `is_cache_used(backend)`).
+    host anyway — only accelerator executables are worth persisting.  jax
+    has no per-backend knob, so wrap the one predicate its compiler
+    consults (jax/_src/compiler.py `_get_cache_key` →
+    `is_cache_used(backend)`).
     """
     try:
         from jax._src import compilation_cache as _cc
@@ -104,18 +80,17 @@ _enabled_dir: str | None = None
 def enable_persistent_cache(path: str | None = None) -> str | None:
     """Enable XLA's persistent compilation cache; returns the cache dir.
 
-    Idempotent; respects ``NODAL_TPU_NO_CACHE``.  Safe to call before or
-    after backends initialize (the cache is consulted per-compilation).
+    ``path`` (tests) is taken verbatim; otherwise the directory follows the
+    module docstring.  Idempotent; respects ``NODAL_TPU_NO_CACHE``.  Safe
+    to call before or after backends initialize (the cache is consulted
+    per-compilation).
     """
     global _enabled_dir
     if os.environ.get("NODAL_TPU_NO_CACHE"):
         return None
+    env_dir = os.environ.get("JAX_COMPILATION_CACHE_DIR")
     if path is None:
-        path = os.environ.get("NODAL_TPU_CACHE_DIR", _DEFAULT_DIR)
-        # Host-feature salt (explicit paths are taken verbatim): stale
-        # same-path caches from differently-featured CPUs would otherwise
-        # replay mismatched AOT executables with SIGILL warnings.
-        path = os.path.join(path, _host_fingerprint())
+        path = env_dir or DEFAULT_DIR
     if _enabled_dir == path:
         return path
 
@@ -123,23 +98,13 @@ def enable_persistent_cache(path: str | None = None) -> str | None:
 
     try:
         os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
+        if path != env_dir:
+            jax.config.update("jax_compilation_cache_dir", path)
         jax.config.update(
             "jax_persistent_cache_min_compile_time_secs", _MIN_COMPILE_SECS
         )
         # Persist small-but-slow programs too (default gates on entry size).
         jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        try:
-            # Keep the jax-level program cache but drop XLA's own AOT
-            # sub-caches: XLA:CPU AOT results persist compile-machine
-            # feature flags (incl. remote-compile-service pseudo-features
-            # like +prefer-no-scatter) and warn "could lead to ... SIGILL"
-            # on every load from a differently-featured host (round-2
-            # review "What's weak" #3 — the driver bench tail).
-            jax.config.update("jax_persistent_cache_enable_xla_caches",
-                              "none")
-        except Exception:  # pragma: no cover - option name drifts
-            pass
         _exclude_cpu_backend()
     except Exception as e:  # pragma: no cover - config drift across versions
         logger.warning("persistent compile cache unavailable: %s", e)

@@ -8,7 +8,7 @@ natively).  The custom VJP is one adjoint solve Gᵀλ = x̄ plus the COO
 chain rule; see BatchedSolver._finalize (nodal_tpu/batch.py).
 
 The reference has no gradient capability at all (numpy/scipy solves,
-/root/reference/nodal/nodal.py:325-327) — this is TPU-native surplus.
+reference nodal.py:325-327) — this is new capability.
 """
 
 import numpy as np

@@ -68,8 +68,8 @@ def test_residual_audit(tmp_netlist):
 
 def test_residual_gather_fold_matches_scatter(tmp_netlist):
     """The gather-fold audit must equal the scatter-add form bit-for-bit
-    wherever both apply (the fold is the fast path on TPU; the scatter is
-    the dense-row fallback and the historical reference)."""
+    wherever both apply (the fold is the fast path; the scatter is the
+    dense-row fallback and the historical reference)."""
     import jax
     import jax.numpy as jnp2
 

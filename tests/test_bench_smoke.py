@@ -1,12 +1,10 @@
 """End-to-end smoke of EVERY bench.py stage at toy sizes (CPU).
 
-Round-4 postmortem: `bench_opmodel_chain` shipped with a malformed OPMODEL
-row and crashed on its first circuit, and the driver-run bench timed out
-before printing anything — BENCH_r04.json held zero numbers.  This test
-runs the full `main()` stage plumbing (incremental JSON emission, budget
-handling, per-stage error isolation) plus each stage function directly, so
-a stage that cannot build its circuit fails here in seconds, not at
-round-end on the TPU.
+A stage that cannot build its circuit once crashed a full benchmark run
+before it printed anything.  This test runs the full `main()` stage
+plumbing (incremental JSON emission, budget handling, per-stage error
+isolation) plus each stage function directly, so such a stage fails here
+in seconds, not on the accelerator.
 """
 
 import io
@@ -49,9 +47,8 @@ def _run_main(argv):
 
 
 def test_main_runs_every_stage_at_toy_size():
-    # Deliberately NOT marked slow (~90 s): this is the guard that keeps
-    # BENCH_r{N}.json from ever being empty again — every stage function
-    # must build its circuits and run end-to-end through main().
+    # Deliberately NOT marked slow (~90 s): every stage function must build
+    # its circuits and run end-to-end through main().
     payloads = _run_main(_toy_args())
     # Incremental emission: one line after the headline, one per stage,
     # plus the final re-print — the *first* line must already be parseable
@@ -120,3 +117,28 @@ def test_opmodel_row_layout_builds():
     out = bench.bench_opmodel_chain(n_stages=2)
     assert out["opmodel_unknowns"] > 0
     assert out["opmodel_rel_residual_f64"] <= 1e-9
+
+
+def test_roofline_uses_device_kind_table():
+    # H100 shares against the data-sheet peaks (67 TFLOP/s f32, 3.35 TB/s).
+    out = bench._roofline((67e9, 3.35e9), 100.0, "NVIDIA H100 80GB HBM3")
+    assert out["tflops"] == pytest.approx(6.7)
+    assert out["pct_flops_peak"] == pytest.approx(10.0)
+    assert out["hbm_gbps"] == pytest.approx(335.0)
+    assert out["pct_hbm_peak"] == pytest.approx(10.0)
+    assert out["bound"] == "latency/pipeline"
+
+
+@pytest.mark.parametrize("kind", ["cpu", "NVIDIA H200", "NVIDIA A100-SXM4-80GB"])
+def test_roofline_unknown_device_gets_no_fields(kind):
+    # No default peaks: a device missing from the table reports nothing.
+    assert bench._roofline((1e9, 1e9), 100.0, kind) == {}
+
+
+def test_payload_names_its_device():
+    final = _run_main(_toy_args() + [
+        "--skip-sparse", "--skip-grid", "--skip-general", "--skip-grad",
+        "--skip-mc", "--midsize-nodes", "0"])[-1]
+    assert final["backend"] == "cpu" and final["device_kind"] == "cpu"
+    assert final["device_count"] >= 1
+    assert not any(k.endswith("pct_flops_peak") for k in final)

@@ -1,7 +1,6 @@
-"""General-topology dense solver paths (round-2 perf work, VERDICT #1):
-the Schur-complement method for branch-equation systems, the multi-RHS
-blocked solve it relies on, and the VMEM-resident Pallas LU mega-kernel
-(interpret mode here; Mosaic compilation in tests/test_tpu_smoke.py)."""
+"""General-topology dense solver paths: the Schur-complement method for
+branch-equation systems, the multi-RHS blocked solve it relies on, and the
+batched dense tiers."""
 
 import numpy as np
 import pytest
@@ -99,107 +98,91 @@ def test_blocked_solve_factored_matrix_rhs():
                                atol=1e-10)
 
 
-@pytest.mark.parametrize("n", [256, 999])
-def test_pallas_lu_interpret_matches_numpy(n):
-    from nodal_tpu.ops.pallas_block_lu import pallas_lu_solve
-
-    rng = np.random.default_rng(n)
-    B = 3
+def _dominant(rng, B, n, r=None):
     A = rng.standard_normal((B, n, n)).astype(np.float32) * 0.5
     A = A + np.transpose(A, (0, 2, 1))
     A += np.eye(n)[None] * (np.abs(A).sum(-1).max(-1)[:, None, None] + 1.0)
-    b = rng.standard_normal((B, n)).astype(np.float32)
-    x = np.asarray(pallas_lu_solve(jnp.asarray(A), jnp.asarray(b)))
+    shape = (B, n) if r is None else (B, n, r)
+    return A, rng.standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [256, 999])
+def test_blocked_solve_f32_matches_numpy(n):
+    # The block tier's f32 solve (padded to the 128 block when n=999).
+    rng = np.random.default_rng(n)
+    A, b = _dominant(rng, 3, n)
+    x = np.asarray(block_lu.blocked_solve(jnp.asarray(A), jnp.asarray(b)))
     exp = np.linalg.solve(A.astype(np.float64),
                           b[..., None].astype(np.float64))[..., 0]
     err = np.max(np.abs(x - exp)) / np.max(np.abs(exp))
     assert err < 5e-6
 
 
-def test_pallas_lu_size_guard():
-    from nodal_tpu.ops.pallas_block_lu import lu_fits_vmem, pallas_lu_solve
-
-    assert lu_fits_vmem(999)
-    assert not lu_fits_vmem(2048)
-    big = jnp.ones((1, 2048, 2048), jnp.float32)
-    with pytest.raises(ValueError, match="VMEM"):
-        pallas_lu_solve(big, jnp.ones((1, 2048), jnp.float32))
-
-
-def test_pallas_lu_multi_rhs_interpret():
-    from nodal_tpu.ops.pallas_block_lu import pallas_lu_solve_multi
-
+def test_blocked_solve_f32_multi_rhs():
     rng = np.random.default_rng(7)
-    B, n, r = 3, 256, 5
-    A = rng.standard_normal((B, n, n)).astype(np.float32) * 0.5
-    A = A + np.transpose(A, (0, 2, 1))
-    A += np.eye(n)[None] * (np.abs(A).sum(-1).max(-1)[:, None, None] + 1.0)
-    R = rng.standard_normal((B, n, r)).astype(np.float32)
-    X = np.asarray(pallas_lu_solve_multi(jnp.asarray(A), jnp.asarray(R)))
+    A, R = _dominant(rng, 3, 256, r=5)
+    X = np.asarray(block_lu.blocked_solve(jnp.asarray(A), jnp.asarray(R)))
     exp = np.linalg.solve(A.astype(np.float64), R.astype(np.float64))
     err = np.max(np.abs(X - exp)) / np.max(np.abs(exp))
     assert err < 5e-5
 
 
-def test_schur_block_assembler_matches_full_assembly():
-    from nodal_tpu.batch import _schur_block_assembler
-    from nodal_tpu.ops.pallas_block_lu import _pad
-
+def test_schur_solve_f32_matches_dense():
+    # The dense Schur tier at f32: block elimination of the branch rows.
     circuit = _mesh_with_branches()
     stamps = circuit.stamps
-    nk, kbe = stamps.n_kcl, stamps.n - stamps.n_kcl
-    nk_pad = _pad(nk)
-    blocks = _schur_block_assembler(stamps, jnp.float64, nk_pad)
-    rng = np.random.default_rng(0)
-    params = stamps.params * (1 + 0.1 * rng.standard_normal(
-        len(stamps.params)))
-    A, Bm, C, D, bk, bb = [np.asarray(t) for t in blocks(params)]
-    G, b = assemble_dense(stamps, jnp.asarray(params, jnp.float64))
-    G, b = np.asarray(G), np.asarray(b)
-    np.testing.assert_array_equal(A[:nk, :nk], G[:nk, :nk])
-    np.testing.assert_array_equal(A[nk:, nk:], np.eye(nk_pad - nk))
-    assert not A[:nk, nk:].any() and not A[nk:, :nk].any()
-    np.testing.assert_array_equal(Bm, G[:nk, nk:])
-    np.testing.assert_array_equal(C, G[nk:, :nk])
-    np.testing.assert_array_equal(D, G[nk:, nk:])
-    np.testing.assert_array_equal(bk, b[:nk])
-    np.testing.assert_array_equal(bb, b[nk:])
-
-
-def test_schur_via_pallas_multi_matches_dense_interpret():
-    # Mirrors the TPU schur fast path (batch.py) with the interpret-mode
-    # kernel: block assembly -> multi-RHS VMEM LU -> Schur algebra.
-    from nodal_tpu.batch import _schur_block_assembler
-    from nodal_tpu.ops.pallas_block_lu import _pad, pallas_lu_solve_multi
-
-    circuit = _mesh_with_branches()
-    stamps = circuit.stamps
-    nk, kbe = stamps.n_kcl, stamps.n - stamps.n_kcl
-    blocks = _schur_block_assembler(stamps, jnp.float32, _pad(nk))
     batch = np.tile(stamps.params, (2, 1)).astype(np.float32)
-    A, Bm, C, D, bk, bb = jax.vmap(blocks)(jnp.asarray(batch))
-    R = jnp.concatenate([Bm, bk[..., None]], axis=-1)
-    R = jnp.pad(R, [(0, 0), (0, A.shape[-1] - nk), (0, 0)])
-    Y = pallas_lu_solve_multi(A, R)[:, :nk, :]
-    YB, yb = Y[..., :kbe], Y[..., kbe]
-    S = D - C @ YB
-    xb = jnp.linalg.solve(S, (bb - (C @ yb[..., None])[..., 0])[..., None])[..., 0]
-    xk = yb - (YB @ xb[..., None])[..., 0]
-    x = np.asarray(jnp.concatenate([xk, xb], axis=-1))
+    G, b = jax.vmap(lambda p: assemble_dense(stamps, p,
+                                             dtype=jnp.float32))(
+        jnp.asarray(batch))
+    x = np.asarray(block_lu.schur_solve(G, b, stamps.n_kcl))
     exp = _expected(circuit, batch[0])
     err = np.max(np.abs(x[0] - exp)) / np.max(np.abs(exp))
     assert err < 1e-4
 
 
-def test_newton_inverse_jacobi_start_weakly_dominant():
+def test_block_method_f64_matches_dense():
+    # The block tier (pinned) on random long-range resistors.
+    rng = np.random.default_rng(3)
+    n = 150
+    rows = [["rg", "R", "1", "n0", "g"]]
+    rows += [[f"rc{i}", "R", "1", f"n{i}", f"n{i + 1}"]
+             for i in range(n - 1)]
+    for k, j in enumerate(rng.integers(0, n, size=120)):
+        i = int((j * 7919 + 13) % n)
+        if i != int(j):
+            rows.append([f"rl{k}", "R", "2", f"n{j}", f"n{i}"])
+    circuit = Circuit(Netlist.from_rows(rows))
+    solver = BatchedSolver(circuit, dtype=jnp.float64, method="block")
+    xs = np.asarray(solver(np.tile(circuit.stamps.params, (2, 1))))
+    np.testing.assert_allclose(xs[0], _expected(circuit,
+                                                circuit.stamps.params),
+                               rtol=1e-9, atol=1e-11)
+
+
+def test_solve_dense_f64_is_direct():
+    # f64 LU runs in f64 on every backend (no f32 refinement detour).
+    from nodal_tpu.ops.dense_solve import solve_dense
+
+    rng = np.random.default_rng(4)
+    A = rng.standard_normal((40, 40)) + 40 * np.eye(40)
+    b = rng.standard_normal(40)
+    x = solve_dense(jnp.asarray(A), jnp.asarray(b))
+    assert x.dtype == jnp.float64
+    np.testing.assert_allclose(np.asarray(x), np.linalg.solve(A, b),
+                               rtol=1e-13, atol=1e-14)
+
+
+def test_blocked_factor_weakly_dominant_laplacian():
     # Interior Laplacian rows have |diag| == sum|offdiag| (weak dominance);
-    # the Jacobi-start Newton-Schulz must still converge.
-    n = 128
-    D = np.zeros((n, n))
+    # the no-pivot blocked factorization must still solve to f64 accuracy.
+    n = 256
+    A = np.zeros((n, n))
     for i in range(n):
-        D[i, i] = 4.0
-        for j in (i - 1, i + 1, i - 8, i + 8):
+        A[i, i] = 4.0 + (1e-3 if i == 0 else 0.0)
+        for j in (i - 1, i + 1, i - 16, i + 16):
             if 0 <= j < n:
-                D[i, j] = -1.0
-    X = np.asarray(block_lu._inv_block(jnp.asarray(D), 12))
-    assert np.max(np.abs(np.eye(n) - X @ D)) < 1e-6
+                A[i, j] = -1.0
+    b = np.random.default_rng(0).standard_normal(n)
+    x = np.asarray(block_lu.blocked_solve(jnp.asarray(A), jnp.asarray(b)))
+    np.testing.assert_allclose(A @ x, b, atol=1e-10)

@@ -1,4 +1,4 @@
-"""Multi-device tests on the virtual 8-device CPU mesh: GSPMD-sharded batch
+"""Multi-device tests on the virtual 8-device CPU mesh: sharded batch
 and grid solvers, and the explicit shard_map halo-exchange CG."""
 
 import numpy as np
@@ -55,8 +55,8 @@ def test_sharded_batch_solver_matches_single():
 
 
 def test_sharded_batch_solver_band_structure():
-    # Mesh topology routes the sharded solver onto the XLA block-Thomas
-    # path (GSPMD shards its batch dim with zero communication); results
+    # Mesh topology routes the sharded solver onto BatchedSolver's banded
+    # tier (shard_map over its batch dim, zero communication); results
     # must match the dense oracle on every shard.
     from nodal_tpu.utils.gridgen import grid_rows
 
@@ -88,13 +88,14 @@ def test_sharded_grid_solver_matches_local():
     B = 4
     rhs = _rhs_batch(B, h, w)
     solver = make_sharded_grid_solver(h, w, mesh, dtype=jnp.float64, tol=1e-10)
-    xs, residuals = solver(jnp.asarray(rhs))
+    xs, residuals, iters = solver(jnp.asarray(rhs))
     xs = np.asarray(xs)
     assert np.all(np.asarray(residuals) < 1e-9)
     for i in range(B):
         x_ref, info = grid_solve(h, w, jnp.asarray(rhs[i]), dtype=jnp.float64,
                                  tol=1e-10)
         np.testing.assert_allclose(xs[i], np.asarray(x_ref), rtol=1e-6, atol=1e-9)
+        assert int(np.asarray(iters)[i]) == int(info.iterations)
 
 
 def test_sharded_grid_mg_deep_hierarchy():
@@ -106,7 +107,7 @@ def test_sharded_grid_mg_deep_hierarchy():
     rhs = _rhs_batch(2, h, w, seed=11)
     solver = make_sharded_grid_solver(h, w, mesh, dtype=jnp.float64,
                                       tol=1e-10)
-    xs, residuals = solver(jnp.asarray(rhs))
+    xs, residuals, _ = solver(jnp.asarray(rhs))
     assert np.all(np.asarray(residuals) < 1e-9)
     x_ref, _ = grid_solve(h, w, jnp.asarray(rhs[0]), dtype=jnp.float64,
                           tol=1e-10)
@@ -228,104 +229,74 @@ def test_halo_matvec_matches_dense():
     np.testing.assert_allclose(got, expected, rtol=1e-12, atol=1e-12)
 
 
-def test_sharded_pallas_band_kernel_matches_single(monkeypatch):
-    """Round-2 review item #4: the multi-chip batch path must keep the
-    single-chip Pallas kernels — shard_map wraps them per device (opaque
-    custom calls GSPMD cannot split).  On the virtual CPU mesh the kernels
-    run in interpret mode (pallas='on' forces the path).  With the default
-    adaptive Newton-Schulz, the tile-level convergence stop depends on
-    which samples share a tile, so sharding (different tile composition)
-    may differ from single-device at the f32 noise floor — assert a tight
-    tolerance there, and bit-exactness with a pinned iteration count."""
+def _mesh_batch(seed, B=16, h=6, w=30):
     from nodal_tpu.utils.gridgen import grid_rows
-    from nodal_tpu.ops.band import band_plan
-    from nodal_tpu.ops.pallas_band import pallas_band_solve
 
-    mesh = make_mesh(8)
-    rows = list(grid_rows(6, 30, (0, 0), (5, 29)))
+    rows = list(grid_rows(h, w, (0, 0), (h - 1, w - 1)))
     rows.append(["src", "A", "1", "n1_1", "g"])
     circuit = Circuit(Netlist.from_rows(rows))
-    plan = band_plan(circuit.stamps)
-    assert plan is not None and plan.nb >= 2  # precondition: band tier
-
-    solver = make_sharded_batch_solver(
-        circuit.stamps, mesh, dtype=jnp.float32, pallas="on", method="band"
-    )
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(seed)
     base = circuit.stamps.params
-    B = 16
     batch = (base * (1.0 + 0.05 * rng.standard_normal((B, len(base))))
              ).astype(np.float32)
-    got = np.asarray(solver(batch))
+    return circuit, batch
 
-    # Single-device kernel on the full batch (same interpret-mode kernel).
+
+def test_sharded_band_tier_matches_single():
+    """A mesh too wide for the scalar-band tier runs BatchedSolver's
+    block-Thomas tier on every shard."""
+    from nodal_tpu.batch import BatchedSolver
+    from nodal_tpu.ops.band import band_plan, band_thomas_solve
+
+    mesh = make_mesh(8)
+    circuit, batch = _mesh_batch(7, B=8, h=60, w=60)
+    plan = band_plan(circuit.stamps)
+    assert BatchedSolver(circuit.stamps, dtype=jnp.float32).method == "band"
+    solver = make_sharded_batch_solver(circuit.stamps, mesh,
+                                       dtype=jnp.float32)
+    got = np.asarray(solver(batch))
     W, b = jax.vmap(
         lambda p: plan.assemble(circuit.stamps, p, dtype=jnp.float32)
     )(jnp.asarray(batch))
-    expected = np.asarray(plan.unpermute(pallas_band_solve(W, b)))
-    np.testing.assert_allclose(got, expected, rtol=1e-4, atol=1e-4)
-
-    # With Newton-Schulz pinned to a fixed count the kernel is sample-wise
-    # deterministic regardless of tile composition: bit-exact per shard.
-    from nodal_tpu.ops import pallas_band
-
-    monkeypatch.setattr(pallas_band, "_resolve_ns",
-                        lambda nb, kb, ni, ft: (16, 16, False))
-    # The adaptive run above cached jitted traces under the (None, None)
-    # static key (both the direct kernel and the one inlined inside the
-    # sharded solver's jit); without clearing, those executables replay the
-    # adaptive path and ignore the monkeypatch.
-    jax.clear_caches()
-    solver_fixed = make_sharded_batch_solver(
-        circuit.stamps, mesh, dtype=jnp.float32, pallas="on", method="band"
-    )
-    got_fixed = np.asarray(solver_fixed(batch))
-    expected_fixed = np.asarray(plan.unpermute(pallas_band_solve(W, b)))
-    np.testing.assert_allclose(got_fixed, expected_fixed, rtol=0, atol=0)
+    expected = np.asarray(plan.unpermute(band_thomas_solve(W, b)))
+    np.testing.assert_allclose(got, expected, rtol=1e-5, atol=1e-6)
 
 
 def test_sharded_pallas_sband_kernel_matches_single():
-    """Narrow-band mesh through the shard_map-wrapped scalar LDL^T kernel.
-    The scalar kernel has no adaptive stage, so sharded output is
-    bit-exact against the single-device kernel regardless of how samples
-    are grouped into shards."""
-    from nodal_tpu.utils.gridgen import grid_rows
+    """Narrow-band mesh through the shard_map-wrapped scalar LDL^T kernel
+    (interpret mode on the virtual CPU mesh).  The kernel is per-system
+    deterministic, so sharded output is bit-exact against the
+    single-device kernel regardless of how samples are grouped."""
     from nodal_tpu.ops.scalar_band import sband_plan
     from nodal_tpu.ops.pallas_scalar_band import pallas_scalar_band_solve
 
     mesh = make_mesh(8)
-    rows = list(grid_rows(6, 30, (0, 0), (5, 29)))
-    rows.append(["src", "A", "1", "n1_1", "g"])
-    circuit = Circuit(Netlist.from_rows(rows))
+    circuit, batch = _mesh_batch(9)
     splan = sband_plan(circuit.stamps)
     assert splan is not None  # precondition: scalar band tier
 
     solver = make_sharded_batch_solver(
-        circuit.stamps, mesh, dtype=jnp.float32, pallas="on"
+        circuit.stamps, mesh, dtype=jnp.float32, interpret=True
     )
-    rng = np.random.default_rng(9)
-    base = circuit.stamps.params
-    B = 16
-    batch = (base * (1.0 + 0.05 * rng.standard_normal((B, len(base))))
-             ).astype(np.float32)
     got = np.asarray(solver(batch))
 
     U, b = jax.vmap(
         lambda p: splan.assemble(circuit.stamps, p, dtype=jnp.float32)
     )(jnp.asarray(batch))
-    expected = np.asarray(splan.unpermute(pallas_scalar_band_solve(U, b)))
+    expected = np.asarray(splan.unpermute(
+        pallas_scalar_band_solve(U, b, interpret=True)))
     np.testing.assert_allclose(got, expected, rtol=0, atol=0)
 
 
-def test_sharded_pallas_tridiag_kernel_matches_single():
-    """Ladder topology through the shard_map-wrapped PCR kernel."""
+def test_sharded_tridiag_matches_single():
+    """Ladder topology: the sharded XLA PCR path."""
     from nodal_tpu.ops.assemble import assemble_tridiag
-    from nodal_tpu.ops.pallas_tridiag import pcr_solve_padded
+    from nodal_tpu.ops.tridiag import tridiag_solve
 
     mesh = make_mesh(8)
     circuit = Circuit(Netlist.from_rows(ladder_rows(64)))
     solver = make_sharded_batch_solver(
-        circuit.stamps, mesh, dtype=jnp.float32, pallas="on"
+        circuit.stamps, mesh, dtype=jnp.float32, interpret=True
     )
     rng = np.random.default_rng(11)
     base = circuit.stamps.params
@@ -337,49 +308,27 @@ def test_sharded_pallas_tridiag_kernel_matches_single():
     dl, d, du, b = jax.vmap(
         lambda p: assemble_tridiag(circuit.stamps, p, dtype=jnp.float32)
     )(jnp.asarray(batch))
-    expected = np.asarray(pcr_solve_padded(dl, d, du, b))
-    np.testing.assert_allclose(got, expected, rtol=0, atol=0)
+    expected = np.asarray(tridiag_solve(dl, d, du, b))
+    np.testing.assert_allclose(got, expected, rtol=1e-6, atol=1e-7)
 
 
-def test_sharded_pallas_sband_streaming_matches_single(monkeypatch):
-    """Past the VMEM tier the sharded narrow-band path rides the streaming
-    scalar-band kernel (forced here by gating off the VMEM tier and
-    shrinking the chunk so the 174-row mesh crosses chunk boundaries);
-    sharded output is bit-exact against the single-device kernel."""
-    from nodal_tpu.utils.gridgen import grid_rows
-    from nodal_tpu.ops import pallas_scalar_band as psb
-    from nodal_tpu.ops.scalar_band import sband_plan
-
-    monkeypatch.setattr(psb, "sband_fits_vmem", lambda *a, **k: False)
-    monkeypatch.setattr(psb, "_stream_chunk", lambda W1a: 64)
+def test_sharded_kernel_f64_matches_scan():
+    """f64 through the sharded kernel (interpret) against the scan tier of
+    the single-device BatchedSolver."""
+    from nodal_tpu.batch import BatchedSolver
 
     mesh = make_mesh(8)
-    rows = list(grid_rows(6, 30, (0, 0), (5, 29)))
-    rows.append(["src", "A", "1", "n1_1", "g"])
-    circuit = Circuit(Netlist.from_rows(rows))
-    splan = sband_plan(circuit.stamps)
-    assert splan is not None
-
-    solver = make_sharded_batch_solver(
-        circuit.stamps, mesh, dtype=jnp.float32, pallas="on"
-    )
-    rng = np.random.default_rng(13)
-    base = circuit.stamps.params
-    B = 16
-    batch = (base * (1.0 + 0.05 * rng.standard_normal((B, len(base))))
-             ).astype(np.float32)
-    got = np.asarray(solver(batch))
-
-    U, b = jax.vmap(
-        lambda p: splan.assemble(circuit.stamps, p, dtype=jnp.float32)
-    )(jnp.asarray(batch))
-    expected = np.asarray(
-        splan.unpermute(psb.pallas_scalar_band_solve_stream(U, b)))
-    np.testing.assert_allclose(got, expected, rtol=0, atol=0)
+    circuit, batch = _mesh_batch(13)
+    solver = make_sharded_batch_solver(circuit.stamps, mesh,
+                                       dtype=jnp.float64, interpret=True)
+    got = np.asarray(solver(batch.astype(np.float64)))
+    local = BatchedSolver(circuit, dtype=jnp.float64, method="sband")
+    expected = np.asarray(local(batch.astype(np.float64)))
+    np.testing.assert_allclose(got, expected, rtol=1e-12, atol=1e-12)
 
 
 def test_sharded_batch_solver_gradients_match_local():
-    """jax.grad through the GSPMD-sharded solver (adjoint custom VJP over
+    """jax.grad through the sharded solver (adjoint custom VJP over
     the sharded batch) must match the single-device BatchedSolver's
     gradient — data-parallel gradient sweeps across chips."""
     from nodal_tpu.batch import BatchedSolver
@@ -407,11 +356,10 @@ def test_sharded_batch_solver_gradients_match_local():
 
 def _sharded_schur_oracle_check(h, w, batch):
     """Round-3 review item #3: multi-chip sweeps of branch-equation
-    circuits must ride the Schur fast tier (banded multi-RHS kernels in
-    shard_map), not fall to the per-sample dense core.  Forward AND
-    adjoint parity vs the f64 oracle on the virtual mesh."""
+    circuits must ride the Schur fast tier (the multi-RHS scalar-band
+    kernel in shard_map), not fall to the per-sample dense core.  Forward
+    AND adjoint parity vs the f64 oracle on the virtual mesh."""
     from nodal_tpu.batch import BatchedSolver
-    from nodal_tpu.parallel.sharded import _pallas_local_schur_solver
     from nodal_tpu.utils.gridgen import grid_rows
 
     rows = list(grid_rows(h, w, (0, 0), (h - 1, w - 1)))
@@ -419,11 +367,10 @@ def _sharded_schur_oracle_check(h, w, batch):
     rows.append(["d1", "VCCS", "0.5", "n3_3", "g", "1", "g"])
     circuit = Circuit(Netlist.from_rows(rows))
     # The tier must actually be selected for this structure.
-    assert _pallas_local_schur_solver(circuit.stamps, jnp.float32) \
-        is not None
+    assert BatchedSolver(circuit, dtype=jnp.float32).method == "schur"
 
     mesh = make_mesh(8)
-    sharded = make_sharded_batch_solver(circuit.stamps, mesh, pallas="on")
+    sharded = make_sharded_batch_solver(circuit.stamps, mesh, interpret=True)
     oracle = BatchedSolver(circuit, dtype=jnp.float64, refine=True)
 
     rng = np.random.default_rng(0)
@@ -446,10 +393,9 @@ def _sharded_schur_oracle_check(h, w, batch):
 
 
 def test_sharded_schur_branch_tier_matches_oracle():
-    """Shrunk default-suite variant (round-4 review item #7: the 25×40
-    version took 301 s of interpret-mode Pallas; 11×24 is the smallest
-    mesh the tier's nk≥256 gate accepts and covers the same code paths
-    in ~20 s)."""
+    """Shrunk default-suite variant: 11×24 is the smallest mesh the
+    tier's nk≥256 gate accepts and covers the same code paths as the
+    full-size twin in interpret mode."""
     _sharded_schur_oracle_check(11, 24, batch=8)
 
 

@@ -26,30 +26,37 @@ def test_forced_fast_method_on_anomalous_rejected():
             BatchedSolver(circuit, method=method)
 
 
-def test_pallas_shape_guard():
-    from nodal_tpu.ops.grid import _pallas_shapes_ok
+@pytest.mark.parametrize("h,w", [(24, 40), (30, 44)])
+def test_grid_solve_any_even_or_odd_shape(h, w):
+    # The XLA V-cycle stops coarsening at odd sizes instead of rejecting
+    # the shape; CG must still converge to the grounded solve.
+    from nodal_tpu.ops.grid import grid_solve, laplacian_matvec
 
-    assert _pallas_shapes_ok(1024, 1024, 4)
-    assert _pallas_shapes_ok(512, 512, 4)  # single mega-kernel regime
-    assert not _pallas_shapes_ok(600, 1024, 4)  # not 256-tileable
-    assert not _pallas_shapes_ok(1999, 2048, 4)  # odd above cutoff
+    rng = np.random.default_rng(h * w)
+    b = rng.standard_normal((h, w))
+    b -= b.mean()
+    x, info = grid_solve(h, w, jnp.asarray(b), dtype=jnp.float64, tol=1e-10)
+    assert bool(info.converged)
+    r = np.asarray(laplacian_matvec(x)) - b
+    assert np.max(np.abs(r)) < 1e-8
 
 
-def test_pallas_backend_rejects_bad_shape_cleanly():
-    from nodal_tpu.ops.grid import make_mg_preconditioner
+def test_pcr_long_chain():
+    # 65,536-row chain through the XLA PCR (no length cap).
+    from nodal_tpu.ops.tridiag import tridiag_matvec, tridiag_solve
 
-    with pytest.raises(ValueError, match="does not support"):
-        make_mg_preconditioner(600, 1024, jnp.float32, backend="pallas")
-
-
-def test_pcr_vmem_guard():
-    from nodal_tpu.ops.pallas_tridiag import pcr_fits_vmem, pcr_solve_padded
-
-    assert pcr_fits_vmem(1000)
-    assert not pcr_fits_vmem(65536)
-    big = jnp.ones((8, 65536), jnp.float32)
-    with pytest.raises(ValueError, match="VMEM"):
-        pcr_solve_padded(big, big, big, big)
+    n = 65536
+    rng = np.random.default_rng(0)
+    dl = -rng.uniform(0.5, 1.0, (2, n))
+    du = -rng.uniform(0.5, 1.0, (2, n))
+    dl[:, 0] = 0.0
+    du[:, -1] = 0.0
+    d = 2.5 + rng.uniform(0.0, 1.0, (2, n))
+    b = rng.standard_normal((2, n))
+    x = tridiag_solve(*(jnp.asarray(t) for t in (dl, d, du, b)))
+    r = np.asarray(tridiag_matvec(*(jnp.asarray(t) for t in (dl, d, du)),
+                                  x)) - b
+    assert np.max(np.abs(r)) < 1e-10
 
 
 def test_empty_name_field_is_clean():
